@@ -1,0 +1,41 @@
+"""Auxiliary-loss heads (``hulc2_tpu/models/aux_nets.py``)."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from hulc2_torch.models.layers import Dense
+
+
+class ProjVisLang(nn.Module):
+    """Projections of the posterior's sequence features and the language goal
+    into one space for the CLIP-style loss. Reference names ``mlp_im.{0,2}``,
+    ``mlp_lang.{0,2}``."""
+
+    def __init__(self, vis_features: int, lang_features: int, output_dim: int = 32,
+                 proj_lang: bool = True):
+        super().__init__()
+        if not proj_lang:
+            raise NotImplementedError("proj_lang=false is not ported")
+        self.mlp_im = nn.Sequential(Dense(vis_features, 128), nn.ReLU(), Dense(128, output_dim))
+        self.mlp_lang = nn.Sequential(Dense(lang_features, 128), nn.ReLU(), Dense(128, output_dim))
+
+    def forward(self, vis_emb: torch.Tensor, lang_emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.mlp_im(vis_emb), self.mlp_lang(lang_emb)
+
+
+class LangTaskHead(nn.Module):
+    """Task classifier on the language tower's output (training only); its
+    output layer runs in fp32 as in the JAX package."""
+
+    def __init__(self, in_features: int, n_tasks: int = 34, hidden_size: int = 256):
+        super().__init__()
+        self.fc0 = Dense(in_features, hidden_size)
+        self.fc1 = Dense(hidden_size, n_tasks)
+
+    def forward(self, lang_emb: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.fc0(lang_emb))
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            return self.fc1(x.float())

@@ -1,0 +1,122 @@
+"""Image preprocessing: the RandomShift+normalize kernel wrapper and its plain version.
+
+Counterpart of ``hulc2_tpu/ops/preprocess.py``. Images are NHWC uint8, as the
+data pipeline delivers them. ``random_shift_normalize`` is the train
+transform's hot op: on a CUDA tensor it launches the hand-written kernel
+``csrc/shift_normalize.cu`` (the port of the TPU kernel
+``hulc2_tpu/ops/pallas_shift.py:52``); on a CPU tensor it runs the plain
+version below. There is no fallback from the one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from hulc2_torch import kernels
+from hulc2_torch.kernels import build
+
+Stat = Union[float, Sequence[float]]
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _affine(mean: Stat, std: Stat, channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (scale, shift) per channel on the CPU: x/255 normalized as
+    x * 1/(255 std) - mean/std, one multiply-add."""
+    mean_t = torch.broadcast_to(torch.as_tensor(mean, dtype=torch.float32), (channels,))
+    std_t = torch.broadcast_to(torch.as_tensor(std, dtype=torch.float32), (channels,))
+    return 1.0 / (255.0 * std_t), -mean_t / std_t
+
+
+def scale_and_normalize(imgs: torch.Tensor, mean: Stat, std: Stat) -> torch.Tensor:
+    """uint8 [0, 255] (..., C) -> ((x / 255) - mean) / std, folded into one fp32
+    multiply-add (``preprocess.py:25-34``)."""
+    scale, shift = _affine(mean, std, imgs.shape[-1])
+    return imgs.float() * scale.to(imgs.device) + shift.to(imgs.device)
+
+
+def normalize_vector(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """(x - mean) / std with zero-std dims treated as std = 1."""
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
+    std = torch.where(std == 0.0, torch.ones_like(std), std)
+    return (x - mean) / std
+
+
+def shift_from_offsets(offsets: torch.Tensor, imgs: torch.Tensor, pad: int) -> torch.Tensor:
+    """Edge-padded integer crop for given per-frame ``offsets`` (N, 2), rows
+    then columns, each in [0, 2 pad]: a gather with clamped indices, in the
+    input's dtype. Same function as ``preprocess.shift_from_offsets`` without
+    the TPU's one-hot matmuls."""
+    n, h, w, _ = imgs.shape
+    offsets = offsets.to(imgs.device, torch.long)
+    rows = (offsets[:, 0:1] + torch.arange(h, device=imgs.device) - pad).clamp(0, h - 1)
+    cols = (offsets[:, 1:2] + torch.arange(w, device=imgs.device) - pad).clamp(0, w - 1)
+    frame = torch.arange(n, device=imgs.device)[:, None, None]
+    return imgs[frame, rows[:, :, None], cols[:, None, :]]
+
+
+def shift_normalize_plain(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, mean: Stat,
+                          std: Stat, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: clamped gather, then the fp32
+    multiply-add, then one cast to ``out_dtype``."""
+    x = shift_from_offsets(offsets, imgs, pad)
+    return scale_and_normalize(x, mean, std).to(out_dtype)
+
+
+def _check(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, out_dtype: torch.dtype) -> None:
+    if imgs.dtype != torch.uint8 or imgs.dim() != 4:
+        raise ValueError(f"imgs must be (N, H, W, C) uint8, got {tuple(imgs.shape)} {imgs.dtype}")
+    if imgs.shape[-1] != 3:
+        raise ValueError(f"RGB (3-channel) frames only, got {imgs.shape[-1]} channels")
+    if not imgs.is_contiguous():
+        raise ValueError("imgs must be contiguous NHWC")
+    if offsets.dtype != torch.int32 or tuple(offsets.shape) != (imgs.shape[0], 2):
+        raise ValueError(f"offsets must be ({imgs.shape[0]}, 2) int32, got "
+                         f"{tuple(offsets.shape)} {offsets.dtype}")
+    if not offsets.is_contiguous() or offsets.device != imgs.device:
+        raise ValueError("offsets must be contiguous and on the images' device")
+    if pad < 0:
+        raise ValueError(f"pad must be >= 0, got {pad}")
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, got {out_dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    fn = build.load("shift_normalize").shift_normalize_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def random_shift_normalize(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, mean: Stat,
+                           std: Stat, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Fused RandomShift crop + scale/normalize: (N, H, W, 3) uint8 -> (N, H, W, 3)
+    ``out_dtype``. ``offsets`` is (N, 2) int32, column 0 rows and column 1
+    columns, each in [0, 2 pad]. CUDA tensors go through the kernel, CPU
+    tensors through ``shift_normalize_plain``."""
+    _check(imgs, offsets, pad, out_dtype)
+    if imgs.device.type == "cpu":
+        return shift_normalize_plain(imgs, offsets, pad, mean, std, out_dtype)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {imgs.device}")
+    n, h, w, c = imgs.shape
+    scale, shift = _affine(mean, std, c)
+    scale_c = (ctypes.c_float * c)(*scale.tolist())
+    shift_c = (ctypes.c_float * c)(*shift.tolist())
+    out = torch.empty((n, h, w, c), dtype=out_dtype, device=imgs.device)
+    fn = _launch_fn()
+    with torch.cuda.device(imgs.device):
+        stream = torch.cuda.current_stream(imgs.device).cuda_stream
+        err = fn(imgs.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+                 int(out_dtype == torch.bfloat16), n, h, w, pad, scale_c, shift_c, stream)
+    if err != 0:
+        raise RuntimeError(f"shift_normalize launch failed with cudaError {err}")
+    kernels.LAUNCHES["shift_normalize"] += 1
+    return out

@@ -1,0 +1,118 @@
+"""Policy training entry point of the port.
+
+    python -m hulc2_torch.training --synthetic --max-steps 3 [--device cuda|cpu]
+        [--run-dir DIR] [key=value ...]
+
+Builds the flagship policy from ``configs/flagship.py`` (dotted ``key=value``
+overrides, e.g. ``model.plan_proposal.hidden_size=64`` or ``seed=3``) and takes
+``--max-steps`` fused train steps on synthetic windows made on the device.
+Each step appends one line to ``<run-dir>/metrics.jsonl`` with its losses and
+its wall time (host clock around the step, ending in a device synchronise).
+Checkpoints, validation and the on-disk datamodule are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from hulc2_torch.configs.flagship import flagship_config
+from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
+from hulc2_torch.data.random_data import RandomWindowBatches
+from hulc2_torch.models.build import build_policy
+from hulc2_torch.models.hulc2 import Hulc2
+from hulc2_torch.train.optim import make_optimizer
+from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+from hulc2_torch.utils.device import resolve_device, set_precision_flags
+
+
+@dataclass
+class TrainResult:
+    model: Hulc2
+    history: List[Dict[str, float]] = field(default_factory=list)
+
+
+class SyntheticRun:
+    """The flagship policy, its optimizer, transform, train step and a source
+    of synthetic batches on ``device``; ``step(raw)`` takes one train step on
+    a batch from ``data`` and returns its metrics as device tensors."""
+
+    def __init__(self, cfg: dict, device=None):
+        self.device = device = resolve_device(device)
+        set_precision_flags()
+        seed = cfg["seed"]
+        dm_cfg, model_cfg = cfg["datamodule"], cfg["model"]
+        sizes = camera_sizes(dm_cfg["transforms"])
+        self.model = build_policy(model_cfg, gripper_hw=sizes["rgb_gripper"], seed=seed).to(device)
+        optimizer = make_optimizer(self.model.parameters(), model_cfg["optimizer"],
+                                   model_cfg.get("lr_scheduler"))
+        bf16 = self.model.compute_dtype == torch.bfloat16 and device.type == "cuda"
+        transform = make_batch_transform(dm_cfg["observation_space"],
+                                         dm_cfg["proprioception_dims"], dm_cfg["transforms"],
+                                         dtype=torch.bfloat16 if bf16 else torch.float32)
+        self.train_step = make_train_step(
+            self.model, optimizer, transform, cfg["loss"]["clip_auxiliary_loss_beta"],
+            aux_betas_from_loss_cfg(cfg["loss"]), device=device)
+        self.data = RandomWindowBatches(
+            dm_cfg["batch_size_vis"], dm_cfg["batch_size_lang"], dm_cfg["max_window_size"],
+            sizes["rgb_static"], sizes["rgb_gripper"], dm_cfg["action_space"],
+            int(model_cfg.get("lang_task_classes", 34)), seed=seed, device=device)
+        self.generator = torch.Generator(device=device).manual_seed(seed + 1)
+        self.kl_beta = cfg["loss"]["kl_beta"]
+
+    def step(self, raw: Dict) -> Dict[str, torch.Tensor]:
+        return self.train_step(raw, self.generator, self.kl_beta)
+
+
+def train(cfg: dict, max_steps: int, device, run_dir: str) -> TrainResult:
+    """``max_steps`` train steps of the policy ``cfg`` on synthetic batches,
+    logged to ``run_dir/metrics.jsonl``. A step's time runs from a
+    synchronised start, its batch already made, to the host fetch of its
+    metrics."""
+    run = SyntheticRun(cfg, device)
+    Path(run_dir).mkdir(parents=True, exist_ok=True)
+    result = TrainResult(run.model)
+    with open(Path(run_dir) / "metrics.jsonl", "a") as metrics_file:
+        for i in range(max_steps):
+            raw = run.data.next_batch()
+            _synchronize(run.device)
+            t0 = time.perf_counter()
+            metrics = run.step(raw)
+            names = sorted(metrics)
+            values = torch.stack([metrics[k].float() for k in names]).tolist()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            line = {"step": i, **dict(zip(names, values)), "step_ms": step_ms}
+            result.history.append(line)
+            metrics_file.write(json.dumps(line) + "\n")
+            metrics_file.flush()
+            print(f"step {i}: loss {line['loss']:.4f} total {line['total_loss']:.4f} "
+                  f"grad_norm {line['grad_norm']:.3f} ({step_ms:.1f} ms)", flush=True)
+    return result
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--synthetic", action="store_true", required=True,
+                        help="train on synthetic windows (the only data source ported so far)")
+    parser.add_argument("--max-steps", type=int, required=True)
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--run-dir", default="runs/torch_synthetic")
+    parser.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
+    args = parser.parse_args(argv)
+    return train(flagship_config(args.overrides), args.max_steps, args.device, args.run_dir)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

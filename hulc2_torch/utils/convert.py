@@ -1,0 +1,205 @@
+"""JAX flax params -> the port's ``state_dict`` (the inverse of ``hulc2_tpu/utils/convert.py``).
+
+``flax_to_torch(params, model_cfg)`` takes the flax param tree of the JAX
+``Hulc2`` as numpy arrays and returns tensors under the port's names, which
+are the reference's (``perceptual_encoder.rgb_static_encoder.conv_model.0``,
+``plan_recognition.transformer_encoder.layers.{i}``,
+``action_decoder.rnn.weight_ih_l{k}``, ...) and OpenAI CLIP's for
+``lang_net``. Layout rules, flax -> torch:
+
+- Dense kernel (in, out) -> Linear weight (out, in);
+- Conv kernel (kh, kw, in, out) -> (out, in, kh, kw); the stem kernels are
+  stored space-to-depth packed, (2, 2, 16 C, out), and are unpacked to 8x8;
+- LayerNorm scale/bias -> weight/bias;
+- RNN w_ih/w_hh (in, H) -> weight_ih/weight_hh (H, in);
+- CLIP's separate q/k/v kernels -> one packed ``in_proj_weight`` (3C, C).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+SD = Dict[str, np.ndarray]
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, np.float32)
+
+
+def _prefixed(prefix: str, sd: SD) -> SD:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def dense(p: Mapping) -> SD:
+    """flax nn.Dense params {kernel, bias} -> Linear {weight, bias}."""
+    return {"weight": _f32(p["kernel"]).T, "bias": _f32(p["bias"])}
+
+
+def linear(p: Mapping) -> SD:
+    """The JAX package's Dense wrapper ({"linear": {...}})."""
+    return dense(p["linear"])
+
+
+def layer_norm(p: Mapping) -> SD:
+    return {"weight": _f32(p["scale"]), "bias": _f32(p["bias"])}
+
+
+def unpack_stem_kernel(kernel: np.ndarray, block: int = 4) -> np.ndarray:
+    """(kh/b, kw/b, b*b*C, O) space-to-depth packed kernel -> (kh, kw, C, O);
+    the inverse of ``hulc2_tpu/ops/space_to_depth.py:pack_conv_kernel``
+    (packed channel = dy*b*C + dx*C + c)."""
+    ph, pw, bbc, o = kernel.shape
+    c = bbc // (block * block)
+    k = _f32(kernel).reshape(ph, pw, block, block, c, o)  # (ky, kx, dy, dx, c, o)
+    return k.transpose(0, 2, 1, 3, 4, 5).reshape(ph * block, pw * block, c, o)
+
+
+def conv(p: Mapping, stem: bool = False) -> SD:
+    """The JAX package's Conv wrapper -> Conv2d {weight, bias}."""
+    kernel = _f32(p["conv"]["kernel"])
+    if stem and kernel.shape[:2] == (2, 2):
+        kernel = unpack_stem_kernel(kernel)
+    return {"weight": kernel.transpose(3, 2, 0, 1), "bias": _f32(p["conv"]["bias"])}
+
+
+def vision_network(p: Mapping) -> SD:
+    return {
+        **_prefixed("conv_model.0", conv(p["conv0"], stem=True)),
+        **_prefixed("conv_model.2", conv(p["conv1"])),
+        **_prefixed("conv_model.4", conv(p["conv2"])),
+        **_prefixed("fc1.0", linear(p["fc1"])),
+        **_prefixed("fc2", linear(p["fc2"])),
+        **_prefixed("ln", layer_norm(p["ln"])),
+    }
+
+
+def vision_network_gripper(p: Mapping) -> SD:
+    trunk = p["trunk"]
+    return {
+        **_prefixed("conv_model.0", conv(trunk["conv0"], stem=True)),
+        **_prefixed("conv_model.2", conv(trunk["conv1"])),
+        **_prefixed("conv_model.4", conv(trunk["conv2"])),
+        **_prefixed("conv_model.7", linear(trunk["fc"])),
+        **_prefixed("fc1.0", linear(p["fc1"])),
+        **_prefixed("fc2", linear(p["fc2"])),
+        **_prefixed("ln", layer_norm(p["ln"])),
+    }
+
+
+def mha(p: Mapping) -> SD:
+    return {
+        "in_proj_weight": _f32(p["in_proj"]["kernel"]).T,
+        "in_proj_bias": _f32(p["in_proj"]["bias"]),
+        **_prefixed("out_proj", dense(p["out_proj"])),
+    }
+
+
+def transformer_encoder_layer(p: Mapping) -> SD:
+    return {
+        **_prefixed("self_attn", mha(p["self_attn"])),
+        **_prefixed("linear1", linear(p["ff1"])),
+        **_prefixed("linear2", linear(p["ff2"])),
+        **_prefixed("norm1", layer_norm(p["norm1"])),
+        **_prefixed("norm2", layer_norm(p["norm2"])),
+    }
+
+
+def plan_proposal(p: Mapping) -> SD:
+    out: SD = {}
+    for i in range(4):
+        out.update(_prefixed(f"fc_model.{2 * i}", linear(p[f"fc{i}"])))
+    out.update(_prefixed("fc_state.0", linear(p["fc_state"])))
+    return out
+
+
+def plan_recognition_transformer(p: Mapping, num_layers: int) -> SD:
+    out = {"position_embeddings.weight": _f32(p["position_embeddings"]),
+           **_prefixed("fc", linear(p["fc"])),
+           **_prefixed("fc_state.0", linear(p["fc_state"]))}
+    for i in range(num_layers):
+        out.update(_prefixed(f"transformer_encoder.layers.{i}",
+                             transformer_encoder_layer(p[f"layer{i}"])))
+    return out
+
+
+def goal_encoder(p: Mapping, has_dropout_front: bool) -> SD:
+    idx = (1, 3, 5) if has_dropout_front else (0, 2, 4)
+    out = {}
+    for i, j in enumerate(idx):
+        out.update(_prefixed(f"mlp.{j}", linear(p[f"fc{i}"])))
+    out.update(_prefixed("ln", layer_norm(p["ln"])))
+    return out
+
+
+def logistic_decoder(p: Mapping, num_layers: int) -> SD:
+    rnn = p["rnn"]
+    out: SD = {}
+    for k in range(num_layers):
+        out[f"rnn.weight_ih_l{k}"] = _f32(rnn[f"w_ih_l{k}"]).T
+        out[f"rnn.weight_hh_l{k}"] = _f32(rnn[f"w_hh_l{k}"]).T
+        out[f"rnn.bias_ih_l{k}"] = _f32(rnn[f"b_ih_l{k}"])
+        out[f"rnn.bias_hh_l{k}"] = _f32(rnn[f"b_hh_l{k}"])
+    for head in ("prob_fc", "mean_fc", "log_scale_fc", "gripper_fc"):
+        out.update(_prefixed(head, linear(p[head])))
+    return out
+
+
+def proj_vis_lang(p: Mapping) -> SD:
+    return {
+        **_prefixed("mlp_im.0", linear(p["im_fc0"])),
+        **_prefixed("mlp_im.2", linear(p["im_fc1"])),
+        **_prefixed("mlp_lang.0", linear(p["lang_fc0"])),
+        **_prefixed("mlp_lang.2", linear(p["lang_fc1"])),
+    }
+
+
+def clip_text(p: Mapping, layers: int) -> SD:
+    out = {
+        "token_embedding.weight": _f32(p["token_embedding"]["embedding"]),
+        "positional_embedding": _f32(p["positional_embedding"]),
+        **_prefixed("ln_final", layer_norm(p["ln_final"])),
+        "text_projection": _f32(p["text_projection"]),
+    }
+    for i in range(layers):
+        blk, attn = p[f"resblock_{i}"], p[f"resblock_{i}"]["attn"]
+        pre = f"transformer.resblocks.{i}"
+        out[f"{pre}.attn.in_proj_weight"] = np.concatenate(
+            [_f32(attn[f"{n}_proj"]["kernel"]).T for n in "qkv"], axis=0)
+        out[f"{pre}.attn.in_proj_bias"] = np.concatenate(
+            [_f32(attn[f"{n}_proj"]["bias"]) for n in "qkv"], axis=0)
+        out.update(_prefixed(f"{pre}.attn.out_proj", dense(attn["out_proj"])))
+        out.update(_prefixed(f"{pre}.ln_1", layer_norm(blk["ln_1"])))
+        out.update(_prefixed(f"{pre}.ln_2", layer_norm(blk["ln_2"])))
+        out.update(_prefixed(f"{pre}.mlp.c_fc", dense(blk["c_fc"])))
+        out.update(_prefixed(f"{pre}.mlp.c_proj", dense(blk["c_proj"])))
+    return out
+
+
+def lang_task_head(p: Mapping) -> SD:
+    return {**_prefixed("fc0", linear(p["fc0"])), **_prefixed("fc1", linear(p["fc1"]))}
+
+
+def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``Hulc2`` flax variables ({"params": ...}) of the flagship
+    family -> the port's ``state_dict``."""
+    p = params["params"]
+    pe = p["perceptual_encoder"]
+    sd: SD = {
+        **_prefixed("perceptual_encoder.rgb_static_encoder", vision_network(pe["rgb_static"])),
+        **_prefixed("perceptual_encoder.rgb_gripper_encoder",
+                    vision_network_gripper(pe["rgb_gripper"])),
+        **_prefixed("plan_proposal", plan_proposal(p["plan_proposal"])),
+        **_prefixed("plan_recognition", plan_recognition_transformer(
+            p["plan_recognition"], model_cfg["plan_recognition"]["num_layers"])),
+        **_prefixed("visual_goal", goal_encoder(p["visual_goal"], has_dropout_front=False)),
+        **_prefixed("language_goal", goal_encoder(p["language_goal"], has_dropout_front=True)),
+        **_prefixed("action_decoder", logistic_decoder(
+            p["action_decoder"], model_cfg["action_decoder"]["num_layers"])),
+        **_prefixed("proj_vis_lang", proj_vis_lang(p["proj_vis_lang"])),
+        **_prefixed("lang_net", clip_text(p["lang_net"], model_cfg["language_encoder"]["layers"])),
+        **_prefixed("lang_task_head", lang_task_head(p["lang_task_head"])),
+        "logit_scale": _f32(p["logit_scale"]).reshape(()),
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
