@@ -6,9 +6,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. the card: fail without CUDA; print its name and power limit (nvidia-smi);
 2. build every kernel of the main path from ``hulc2_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version at the main path's shapes
-   (2048 frames of 96x96x3 with pad 4, and of 64x64x3 with pad 3), with
-   kernel and plain times (CUDA events, median of 25 after warm-up) beside the
-   memory-traffic bound;
+   (2048 frames of 96x96x3 with pad 4, and of 64x64x3 with pad 3), bit for
+   bit, then its device time beside the memory-traffic bound, the plain
+   version's and that of a bf16 cast of the same bytes (CUDA events around 50
+   back-to-back launches, ``hulc2_torch.tools.bench_shift_normalize``);
 4. a small-width policy on the card in fp32 (TF32 off) against the same
    policy on the CPU, same weights, batches and draws: the train-step losses
    must agree;
@@ -32,11 +33,8 @@ from pathlib import Path
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 MAIN_STEPS = 10
 WARM_STEPS = 2  # steps 0 and 1 carry cuDNN's algorithm search and allocator growth
-KERNEL_SHAPES = {"rgb_static": (2048, 96, 4), "rgb_gripper": (2048, 64, 3)}
 RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_run"
 
 
@@ -49,21 +47,6 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, each between two CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def phase_build() -> None:
@@ -79,24 +62,18 @@ def phase_build() -> None:
                 print(f"[build]   {line.strip()}", flush=True)
 
 
-def shift_normalize_bound(n: int, hw: int, out_bytes: int) -> tuple:
-    """(bound_ms, bound_by) for one launch: every input byte read once, every
-    output element written once, 2 fp32 flops per element."""
-    elems = n * hw * hw * 3
-    bytes_moved = elems * (1 + out_bytes) + n * 2 * 4  # uint8 in, out, int32 offsets
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * elems / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def phase_kernel_vs_plain(dev: torch.device) -> dict:
+    """The kernel against its plain version, bit for bit, at the main path's
+    shapes; then device times per launch (``tools/bench_shift_normalize``: 50
+    back-to-back launches over 4 input sets between one pair of CUDA events) of
+    the kernel, the plain version and a bf16 cast of the same bytes."""
     from hulc2_torch.ops import preprocess
+    from hulc2_torch.tools import bench_shift_normalize as bench
 
-    g = torch.Generator(device=dev).manual_seed(1234)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
-    for cam, (n, hw, pad) in KERNEL_SHAPES.items():
-        imgs = torch.randint(0, 256, (n, hw, hw, 3), generator=g, device=dev, dtype=torch.uint8)
-        offsets = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device=dev, dtype=torch.int32)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "cast_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for seed, (cam, (n, hw, pad)) in enumerate(bench.SHAPES.items()):
+        sets = bench.make_sets(n, hw, pad, bench.SETS, dev, seed)
+        imgs, offsets = sets[0]
         for out_dtype in (torch.float32, torch.bfloat16):
             got = preprocess.random_shift_normalize(imgs, offsets, pad, [0.5], [0.5], out_dtype)
             want = preprocess.shift_normalize_plain(imgs, offsets, pad, [0.5], [0.5], out_dtype)
@@ -104,26 +81,28 @@ def phase_kernel_vs_plain(dev: torch.device) -> dict:
             if not torch.isfinite(got.float()).all():
                 fail(f"shift_normalize {cam} {out_dtype}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
-            # fp32: 1e-6 (an FMA contraction would differ by one ulp); bf16: one bf16
-            # ulp of the largest value, 2^-7 for |x| in [1, 2)
-            tol = 1e-6 if out_dtype == torch.float32 else 2.0 ** -7
+            # tolerance 0: the kernel rounds the multiply, the add and the bf16
+            # cast exactly as the plain version does
             print(f"[kernel] shift_normalize {cam} {n}x{hw}x{hw}x3 pad {pad} {out_dtype}: "
-                  f"max_abs_err {err:.3g} (tol {tol:.3g})", flush=True)
-            if err > tol:
+                  f"max_abs_err {err:.3g} (tol 0)", flush=True)
+            if err > 0 or got.shape != want.shape:
                 fail(f"shift_normalize disagrees with its plain version on {cam} {out_dtype}")
-            if out_dtype == torch.bfloat16:
-                totals["max_abs_err"] = max(totals["max_abs_err"], err)
-        ms = cuda_time_ms(lambda: preprocess.random_shift_normalize(
-            imgs, offsets, pad, [0.5], [0.5], torch.bfloat16))
-        plain_ms = cuda_time_ms(lambda: preprocess.shift_normalize_plain(
-            imgs, offsets, pad, [0.5], [0.5], torch.bfloat16))
-        bound_ms, bound_by = shift_normalize_bound(n, hw, 2)
-        print(f"[kernel] shift_normalize {cam} bf16: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, {100 * bound_ms / ms:.1f}% of roofline), plain version {plain_ms:.4f} ms "
-              f"(no yardstick: same arithmetic, unfused)", flush=True)
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        ms = bench.device_ms(bench.rotating(bench.kernel_fn(pad), sets))
+        plain_ms = bench.device_ms(bench.rotating(bench.plain_fn(pad), sets))
+        cast_ms = bench.device_ms(bench.rotating(bench.cast_fn, sets))
+        bound_ms, bound_by = bench.bound(n, hw, 2)
+        gbytes = 3 * imgs.numel() / 1e9  # uint8 in, bf16 out
+        print(f"[kernel] shift_normalize {cam} bf16, device time per launch: kernel {ms:.4f} ms "
+              f"({gbytes / ms:.3f} TB/s), bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}% of roofline); plain version {plain_ms:.4f} ms (same "
+              f"arithmetic, unfused); PyTorch's bf16 cast of the same bytes {cast_ms:.4f} ms "
+              f"({gbytes / cast_ms:.3f} TB/s)", flush=True)
         totals["ms"] += ms
         totals["plain_ms"] += plain_ms
+        totals["cast_ms"] += cast_ms
         totals["bound_ms"] += bound_ms
+        del sets, imgs, offsets, got, want
     return {"bound_by": bound_by, **totals}
 
 
@@ -310,7 +289,8 @@ def main() -> int:
         "bound_by": kernel["bound_by"],
         "library_ms": None,
     }
-    print("[kernels] times are per train step: one rgb_static and one rgb_gripper launch", flush=True)
+    print(f"[kernels] times are device times per train step, one rgb_static and one rgb_gripper "
+          f"launch; a bf16 cast of the same bytes takes {kernel['cast_ms']:.4f} ms", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

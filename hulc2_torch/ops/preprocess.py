@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple, Union
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -20,6 +20,13 @@ from hulc2_torch.kernels import build
 
 Stat = Union[float, Sequence[float]]
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+# The kernel's tiling (``csrc/shift_normalize.cu``): one block per tile, a
+# tile being one frame and a band of output rows whose source rows come to
+# about STAGE_BYTES, staged in shared memory by one bulk copy.
+STAGE_BYTES = 32 * 1024
+ALIGN = 16  # a bulk copy's address and size granule
+MAX_SMEM = 232448  # shared memory one block may use on Hopper (227 KB)
 
 
 def _affine(mean: Stat, std: Stat, channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,11 +37,35 @@ def _affine(mean: Stat, std: Stat, channels: int) -> Tuple[torch.Tensor, torch.T
     return 1.0 / (255.0 * std_t), -mean_t / std_t
 
 
+def _stat_key(stat: Stat) -> Tuple[float, ...]:
+    try:
+        return tuple(float(x) for x in stat)
+    except TypeError:  # a scalar
+        return (float(stat),)
+
+
+@functools.lru_cache(maxsize=64)
+def _affine_c(mean: Tuple[float, ...], std: Tuple[float, ...], channels: int) -> tuple:
+    """``_affine`` as the two ctypes float arrays the kernel's entry point
+    takes, built once per (mean, std, channels)."""
+    scale, shift = _affine(mean, std, channels)
+    return (ctypes.c_float * channels)(*scale.tolist()), (ctypes.c_float * channels)(*shift.tolist())
+
+
+@functools.lru_cache(maxsize=64)
+def _affine_on(mean: Tuple[float, ...], std: Tuple[float, ...], channels: int,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_affine`` on ``device``, copied there once: a copy from pageable host
+    memory on every call would synchronise the stream."""
+    scale, shift = _affine(mean, std, channels)
+    return scale.to(device), shift.to(device)
+
+
 def scale_and_normalize(imgs: torch.Tensor, mean: Stat, std: Stat) -> torch.Tensor:
     """uint8 [0, 255] (..., C) -> ((x / 255) - mean) / std, folded into one fp32
     multiply-add (``preprocess.py:25-34``)."""
-    scale, shift = _affine(mean, std, imgs.shape[-1])
-    return imgs.float() * scale.to(imgs.device) + shift.to(imgs.device)
+    scale, shift = _affine_on(_stat_key(mean), _stat_key(std), imgs.shape[-1], imgs.device)
+    return imgs.float() * scale + shift
 
 
 def normalize_vector(x: torch.Tensor, mean, std) -> torch.Tensor:
@@ -66,6 +97,60 @@ def shift_normalize_plain(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, m
     return scale_and_normalize(x, mean, std).to(out_dtype)
 
 
+class ShiftTiling(NamedTuple):
+    band_rows: int  # output rows per band; the last band of a frame may have fewer
+    bands: int  # bands per frame
+    blocks: int  # the grid: one block per (frame, band)
+    stage_bytes: int  # shared memory per block: a band's source rows plus alignment room
+
+
+def shift_tiling(n: int, h: int, w: int) -> ShiftTiling:
+    """The kernel's launch geometry for ``n`` frames of (h, w, 3) uint8.
+    Bands are as even as the ~STAGE_BYTES target allows, so a 96x96 or 64x64
+    frame is one band and a 224x224 frame five bands of 45 rows."""
+    if min(n, h, w) < 1:
+        raise ValueError(f"empty frames: n={n} h={h} w={w}")
+    row_bytes = w * 3
+    bands = -(-h // max(1, min(h, STAGE_BYTES // row_bytes)))
+    band_rows = -(-h // bands)
+    bands = -(-h // band_rows)
+    # the band's bytes start up to 15 bytes into the stage's first 16; the
+    # kernel reads whole 4-byte words, up to 4 bytes past the last one
+    stage = -(-(band_rows * row_bytes + ALIGN - 1) // ALIGN) * ALIGN + ALIGN
+    if stage > MAX_SMEM:
+        raise ValueError(f"a row of {row_bytes} bytes does not fit one block's shared memory")
+    return ShiftTiling(band_rows, bands, n * bands, stage)
+
+
+class BandStage(NamedTuple):
+    rows: range  # output rows of the band
+    src_rows: range  # source rows it stages
+    lo: int  # staged device bytes [lo, hi)
+    hi: int
+    bulk: range  # the 16-byte-aligned part that one bulk copy moves; empty when none
+    stage_end: int  # one past the last byte of its stage written
+
+
+def band_stage(tiling: ShiftTiling, h: int, w: int, pad: int, frame: int, band: int,
+               row_offset: int, base: int = 0) -> BandStage:
+    """What block (frame, band) stages, computed as the kernel computes it
+    (``tile_of`` and ``split_of`` in ``csrc/shift_normalize.cu``); ``base`` is
+    the device address of the images and ``row_offset`` the frame's row offset."""
+    row_bytes = w * 3
+    i0 = band * tiling.band_rows
+    rows = range(i0, min(i0 + tiling.band_rows, h))
+    dy = min(max(row_offset - pad, -h), h)
+    r0 = min(max(rows.start + dy, 0), h - 1)
+    r1 = min(max(rows.stop - 1 + dy, 0), h - 1)
+    lo = base + (frame * h + r0) * row_bytes
+    hi = base + (frame * h + r1 + 1) * row_bytes
+    bulk_lo, bulk_hi = -(-lo // ALIGN) * ALIGN, hi // ALIGN * ALIGN
+    if bulk_hi <= bulk_lo:
+        bulk_lo = bulk_hi = hi
+    return BandStage(rows, range(r0, r1 + 1), lo, hi, range(bulk_lo, bulk_hi, ALIGN),
+                     hi - lo // ALIGN * ALIGN)
+
+
 def _check(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, out_dtype: torch.dtype) -> None:
     if imgs.dtype != torch.uint8 or imgs.dim() != 4:
         raise ValueError(f"imgs must be (N, H, W, C) uint8, got {tuple(imgs.shape)} {imgs.dtype}")
@@ -87,8 +172,7 @@ def _check(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, out_dtype: torch
 @functools.lru_cache(maxsize=None)
 def _launch_fn():
     fn = build.load("shift_normalize").shift_normalize_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 7,
                    ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -107,15 +191,15 @@ def random_shift_normalize(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, 
     if imgs.device.type != "cuda":
         raise ValueError(f"unsupported device {imgs.device}")
     n, h, w, c = imgs.shape
-    scale, shift = _affine(mean, std, c)
-    scale_c = (ctypes.c_float * c)(*scale.tolist())
-    shift_c = (ctypes.c_float * c)(*shift.tolist())
+    tiling = shift_tiling(n, h, w)
+    scale_c, shift_c = _affine_c(_stat_key(mean), _stat_key(std), c)
     out = torch.empty((n, h, w, c), dtype=out_dtype, device=imgs.device)
     fn = _launch_fn()
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         err = fn(imgs.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-                 int(out_dtype == torch.bfloat16), n, h, w, pad, scale_c, shift_c, stream)
+                 int(out_dtype == torch.bfloat16), n, h, w, pad, tiling.band_rows,
+                 tiling.stage_bytes, scale_c, shift_c, stream)
     if err != 0:
         raise RuntimeError(f"shift_normalize launch failed with cudaError {err}")
     kernels.LAUNCHES["shift_normalize"] += 1
