@@ -19,7 +19,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flagship width for a few steps, with every kernel launch count reset just
    before and read just after: losses finite, parameters moved, and
    shift_normalize launched exactly twice per step;
-7. the kernels line, the card line, and the final JSON line.
+7. (a) the kernel at pad 0, the evaluation's val transform, against its plain
+   version on 8 and 32 frames of 96x96 and 64x64, fp32 and bf16, bit for bit,
+   and its device time at the eval's 8 frames per camera;
+8. (b) the device renderer on the card against the same renderer on the CPU,
+   32 evaluation initial states with perturbed robot poses: no pixel off by
+   more than one, fewer than 1e-4 of them off at all, depth within 1e-5;
+9. (c) a small fp32 policy's fused render+policy step through ``Hulc2Agent``,
+   card against CPU, same weights and draws, 40 steps across a replan
+   boundary with one ``reset_env_slot``: actions within 1e-3;
+10. (d) the evaluation path: ``python -m hulc2_torch.evaluation.evaluate_policy
+   --synthetic --fake-env --device-render`` over 32 chains with 32 envs in 4
+   cohorts at the full flagship width, counts reset just before and read just
+   after: 32 results in 0..5, results.json written, shift_normalize launched
+   exactly twice per dispatch;
+11. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -36,6 +50,8 @@ import torch
 MAIN_STEPS = 10
 WARM_STEPS = 2  # steps 0 and 1 carry cuDNN's algorithm search and allocator growth
 RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_run"
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+EVAL_ENVS, EVAL_COHORTS, EVAL_CHAINS, EVAL_EP_LEN = 32, 4, 32, 360
 
 
 def fail(msg: str) -> None:
@@ -259,6 +275,159 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     return launches
 
 
+def phase_kernel_pad0(dev: torch.device) -> dict:
+    """(a) The kernel at pad 0 with zero offsets, the val transform's
+    scale/normalize, against its plain version bit for bit; then its device
+    time at the eval's shapes (8 frames per camera and dispatch)."""
+    from hulc2_torch.ops import preprocess
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    err_max = 0.0
+    for n in (8, 32):
+        for seed, hw in enumerate((96, 64)):
+            imgs, offsets = bench.make_sets(n, hw, 0, 1, dev, seed)[0]
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = preprocess.random_shift_normalize(imgs, offsets, 0, [0.5], [0.5], out_dtype)
+                want = preprocess.shift_normalize_plain(imgs, offsets, 0, [0.5], [0.5], out_dtype)
+                torch.cuda.synchronize(dev)
+                err = (got.float() - want.float()).abs().max().item()
+                print(f"[pad0] shift_normalize {n}x{hw}x{hw}x3 pad 0 {out_dtype}: max_abs_err "
+                      f"{err:.3g} (tol 0)", flush=True)
+                if err > 0 or got.shape != want.shape or not torch.isfinite(got.float()).all():
+                    fail(f"shift_normalize at pad 0 disagrees with its plain version ({n}, {hw})")
+                err_max = max(err_max, err)
+    k = EVAL_ENVS // EVAL_COHORTS
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": err_max}
+    for seed, hw in enumerate((96, 64)):
+        sets = bench.make_sets(k, hw, 0, bench.SETS, dev, seed)
+        totals["ms"] += bench.device_ms(bench.rotating(bench.kernel_fn(0), sets))
+        totals["plain_ms"] += bench.device_ms(bench.rotating(bench.plain_fn(0), sets))
+        bound_ms, totals["bound_by"] = bench.bound(k, hw, 2)
+        totals["bound_ms"] += bound_ms
+    print(f"[pad0] per eval dispatch ({k} frames of 96x96 and of 64x64, bf16 out): kernel "
+          f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, bound {totals['bound_ms']:.5f} "
+          f"ms ({totals['bound_by']})", flush=True)
+    return totals
+
+
+def phase_renderer(dev: torch.device) -> None:
+    """(b) The device renderer on the card against itself on the CPU."""
+    from hulc2_torch.envs.render_torch import make_render_obs_fn
+    from hulc2_torch.tools.profile_eval import perturbed_states
+
+    scenes, robots = perturbed_states(32, seed=11)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        fn = make_render_obs_fn(96, 64, with_depth=True, device=d)
+        with torch.inference_mode():
+            res = fn(torch.from_numpy(scenes).to(d), torch.from_numpy(robots).to(d))
+        out[d.type] = {k: v.cpu() for k, v in res.items()}
+    for key in ("rgb_static", "rgb_gripper"):
+        diff = (out["cpu"][key].int() - out["cuda"][key].int()).abs()
+        over, off = (diff > 1).float().mean().item(), (diff != 0).float().mean().item()
+        print(f"[render] {key} 32 envs: max diff {diff.max().item()} LSB, share off {off:.3g}, "
+              f"share off by more than 1: {over:.3g}", flush=True)
+        if over > 0 or off >= 1e-4:
+            fail(f"the card renderer's {key} leaves the bounds")
+    depth_err = (out["cpu"]["depth_static"] - out["cuda"]["depth_static"]).abs().max().item()
+    print(f"[render] depth_static: max abs err {depth_err:.3g} (tol 1e-5)", flush=True)
+    if not depth_err < 1e-5:
+        fail("the card renderer's depth leaves the bound")
+
+
+def phase_policy_step(dev: torch.device) -> None:
+    """(c) A small fp32 policy's fused render+policy step through the agent,
+    card against CPU, same weights and draws, 40 steps with a replan at 0 and
+    30 and one env restarted at step 17."""
+    from hulc2_torch.agents.hulc2_agent import Hulc2Agent
+    from hulc2_torch.configs.flagship import flagship_config
+    from hulc2_torch.models.build import build_policy
+    from hulc2_torch.models.hulc2 import PolicyDraws
+    from hulc2_torch.tools.profile_eval import perturbed_states
+    from hulc2_torch.utils.clip_tokenizer import tokenize
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    cfg = flagship_config(SMALL_OVERRIDES)
+    k, steps = 4, 40
+    agents = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_policy(cfg["model"], seed=5).to(d).eval()
+        agents[d.type] = Hulc2Agent(model, cfg["datamodule"], n_envs=k,
+                                    device_render={"static_hw": 96, "gripper_hw": 64})
+    scenes, robots = perturbed_states(steps * k, seed=12)
+    lang = tokenize(["open the drawer", "turn on the led", "push the red block to the left",
+                     "stack the blocks"])
+    mc = cfg["model"]
+    g = torch.Generator().manual_seed(13)
+    worst = 0.0
+    for t in range(steps):
+        if t == 17:
+            for agent in agents.values():
+                agent.reset_env_slot(2)
+        obs = {"robot_obs": robots[t * k:(t + 1) * k], "scene_obs": scenes[t * k:(t + 1) * k]}
+        draws = PolicyDraws(
+            -torch.log(-torch.log(torch.rand((k, mc["distribution"]["category_size"],
+                                              mc["distribution"]["class_size"]), generator=g))),
+            1e-5 + (1 - 2e-5) * torch.rand((k, 1, 6, mc["action_decoder"]["n_mixtures"]), generator=g),
+            1e-5 + (1 - 2e-5) * torch.rand((k, 1, 6), generator=g))
+        acts = {}
+        for name, agent in agents.items():
+            d_draws = PolicyDraws(*(x.to(agent.device) for x in draws))
+            acts[name] = agent.step_async(obs, {"lang": lang}, d_draws).cpu()
+        err = (acts["cpu"] - acts["cuda"]).abs().max().item()
+        worst = max(worst, err)
+        if not torch.isfinite(acts["cuda"]).all() or err > 1e-3:
+            fail(f"card and CPU policy steps disagree at step {t}: max abs err {err}")
+    steps_cuda = agents["cuda"].carry.step.cpu().tolist()
+    print(f"[policy_step] small fp32 policy, {k} envs, {steps} steps: actions max abs err "
+          f"{worst:.3g} (tol 1e-3); step counters {steps_cuda}", flush=True)
+    if steps_cuda != [steps, steps, steps - 17, steps]:
+        fail(f"step counters {steps_cuda} after {steps} steps with env 2 restarted at 17")
+
+
+def phase_eval(dev: torch.device, card: str) -> dict:
+    """(d) The evaluation entry point at full flagship width; returns the
+    launch counts of its run."""
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = evaluate_policy.main([
+        "--synthetic", "--fake-env", "--device-render", "--n-envs", str(EVAL_ENVS),
+        "--cohorts", str(EVAL_COHORTS), "--num-sequences", str(EVAL_CHAINS),
+        "--ep-len", str(EVAL_EP_LEN), "--log-dir", str(EVAL_DIR), "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    results_file = EVAL_DIR / "results.json"
+    if not results_file.is_file():
+        fail("the evaluation wrote no results.json")
+    diag = json.loads((EVAL_DIR / "eval_diagnostics.json").read_text())
+    chains = {}
+    for r in diag["subtask_records"]:
+        chains[r["chain"]] = chains.get(r["chain"], 0) + int(r["success"])
+    if len(chains) != EVAL_CHAINS or not all(0 <= v <= 5 for v in chains.values()):
+        fail(f"expected {EVAL_CHAINS} chain results in 0..5, got {chains}")
+    if not 0.0 <= merged["synthetic"]["avg_seq_len"] <= 5.0:
+        fail(f"avg_seq_len out of range: {merged['synthetic']['avg_seq_len']}")
+    dispatches = diag["dispatches"]
+    if launches["shift_normalize"] != 2 * dispatches:
+        fail(f"shift_normalize launched {launches['shift_normalize']} times in {dispatches} "
+             f"dispatches, expected {2 * dispatches}")
+    rate = diag["total_env_steps"] / diag["wall_clock_s"]
+    print(f"[eval] {EVAL_CHAINS} chains, {EVAL_ENVS} envs in {EVAL_COHORTS} cohorts, ep_len "
+          f"{EVAL_EP_LEN}, device render, flagship width: avg_seq_len "
+          f"{merged['synthetic']['avg_seq_len']:.3f}; {diag['total_env_steps']} env steps in "
+          f"{diag['wall_clock_s']:.2f} s of the evaluator's loop = {rate:.1f} env-steps/s; "
+          f"{dispatches} dispatches ({1e3 * diag['wall_clock_s'] / dispatches:.2f} ms each); "
+          f"whole entry point {wall_s:.1f} s; launches {launches}; on {card}", flush=True)
+    print(f"[eval] host time, summed over cohorts: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in diag["timings_s"].items()), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -275,22 +444,31 @@ def main() -> int:
     phase_reference(dev)
     phase_bf16_vs_fp32(dev)
     launches = phase_main_path(dev, card)
+    pad0 = phase_kernel_pad0(dev)
+    phase_renderer(dev)
+    phase_policy_step(dev)
+    eval_launches = phase_eval(dev, card)
 
     entry = {
         "name": "shift_normalize",
         "route": "cuda",
         "source": "hulc2_torch/csrc/shift_normalize.cu",
         "replaces": "hulc2_tpu/ops/pallas_shift.py:52",
-        "launches": launches["shift_normalize"],
-        "max_abs_err": kernel["max_abs_err"],
+        "launches": launches["shift_normalize"] + eval_launches["shift_normalize"],
+        "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"],
         "library_ms": None,
+        "launches_by_path": {"train": launches["shift_normalize"],
+                             "eval": eval_launches["shift_normalize"]},
+        "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }
-    print(f"[kernels] times are device times per train step, one rgb_static and one rgb_gripper "
-          f"launch; a bf16 cast of the same bytes takes {kernel['cast_ms']:.4f} ms", flush=True)
+    print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
+          f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
+          f"{kernel['cast_ms']:.4f} ms); eval_dispatch holds the same per eval dispatch at pad 0",
+          flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

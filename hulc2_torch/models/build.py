@@ -84,6 +84,7 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42) -> Hulc2
         lang_net=lang_net,
         lang_task_head=LangTaskHead(lang_dim, int(model_cfg.get("lang_task_classes", 34))),
         kl_balancing_mix=model_cfg.get("kl_balancing_mix", 0.8),
+        replan_freq=int(model_cfg.get("replan_freq", 30)),
     )
     model.compute_dtype = COMPUTE_DTYPES[model_cfg.get("compute_dtype", "float32")]
     return init_weights_(model, torch.Generator().manual_seed(seed))

@@ -1,8 +1,8 @@
 """Discrete latent plans: straight-through one-hot categorical (``models/distributions.py``).
 
 A plan state is the raw fp32 logits, (..., category_size * class_size). The
-Gumbel noise of ``rsample`` can be handed in, so a test feeds both frameworks
-the same draws; otherwise it comes from the given generator.
+Gumbel noise of ``sample`` and ``rsample`` can be handed in, so a test feeds
+both frameworks the same draws; otherwise it comes from the given generator.
 """
 from __future__ import annotations
 
@@ -31,17 +31,28 @@ class DiscretePlanDistribution:
         u = u.clamp(min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
-    def rsample(self, logits: torch.Tensor, gumbel: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Straight-through sample ``one_hot + probs - probs.detach()``, with
-        the category drawn as argmax(logits + Gumbel noise), flattened."""
-        lg = self._logits(logits)
+    def _one_hot(self, lg: torch.Tensor, gumbel: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        """One-hot category per row of ``lg`` (..., categories, classes), drawn
+        as argmax(logits + Gumbel noise) (``jax.random.categorical``)."""
         if gumbel is None:
             if generator is None:
-                raise ValueError("rsample needs either gumbel noise or a generator")
+                raise ValueError("sampling needs either gumbel noise or a generator")
             gumbel = self.gumbel(lg.shape, generator, lg.device)
         idx = torch.argmax(lg + gumbel.reshape(lg.shape), dim=-1)
-        one_hot = F.one_hot(idx, self.class_size).to(lg.dtype)
+        return F.one_hot(idx, self.class_size).to(lg.dtype)
+
+    def sample(self, logits: torch.Tensor, gumbel: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Non-reparameterized one-hot sample, flattened."""
+        one_hot = self._one_hot(self._logits(logits), gumbel, generator)
+        return one_hot.reshape(*one_hot.shape[:-2], -1)
+
+    def rsample(self, logits: torch.Tensor, gumbel: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Straight-through sample ``one_hot + probs - probs.detach()``, flattened."""
+        lg = self._logits(logits)
+        one_hot = self._one_hot(lg, gumbel, generator)
         probs = torch.softmax(lg, dim=-1)
         st = one_hot + probs - probs.detach()
         return st.reshape(*st.shape[:-2], -1)

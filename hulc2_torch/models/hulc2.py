@@ -1,4 +1,4 @@
-"""HULC++ low-level policy, training forward (``hulc2_tpu/models/hulc2.py:111-231``).
+"""HULC++ low-level policy: training forward and rollout step (``hulc2_tpu/models/hulc2.py``).
 
 One fused pass over [vis rows; lang rows]: visual goals come from the last
 frame of the vis rows, language goals from the CLIP text tower on the lang
@@ -7,11 +7,17 @@ KL is balanced with ``.detach()`` on alternating sides; the action loss is the
 logistic-mixture NLL on TCP-frame targets plus the gripper CE; the CLIP aux
 loss is the static-shape masked form; the task CE head supervises the tower.
 The losses run in fp32 whatever the compute dtype.
+
+``policy_step`` (``hulc2.py:358-407``) is one rollout step of a batch of envs
+with a per-env carry: replanning every ``replan_freq`` steps is a branchless
+per-env masked select, and the random draws (the plan's Gumbel noise, the
+mixture's uniforms) can be handed in as ``PolicyDraws``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,13 +33,31 @@ from hulc2_torch.ops.gripper_frame import world_to_tcp_frame
 from hulc2_torch.ops.logistic import logistic_mixture_log_prob
 
 
+class PolicyCarry(NamedTuple):
+    """Device-resident rollout state of a batch of envs (``hulc2.py:41``)."""
+
+    plan: torch.Tensor  # (B, plan_features)
+    latent_goal: torch.Tensor  # (B, goal_features)
+    hidden: torch.Tensor  # (L, B, H) decoder RNN state
+    step: torch.Tensor  # (B,) int32 rollout step counters
+
+
+class PolicyDraws(NamedTuple):
+    """The random numbers of one ``policy_step``, for tests that feed both
+    frameworks the same draws."""
+
+    plan_gumbel: torch.Tensor  # (B, categories, classes)
+    u_sel: torch.Tensor  # (B, 1, A-1, K) component-selection uniforms
+    u: torch.Tensor  # (B, 1, A-1) inversion uniforms
+
+
 class Hulc2(nn.Module):
     def __init__(self, perceptual_encoder: ConcatEncoders, plan_proposal: PlanProposalNetwork,
                  plan_recognition: PlanRecognitionTransformer, visual_goal: VisualGoalEncoder,
                  language_goal: LanguageGoalEncoder, action_decoder: LogisticPolicyDecoder,
                  proj_vis_lang: ProjVisLang, dist: DiscretePlanDistribution,
                  lang_net: ClipTextTransformer, lang_task_head: LangTaskHead,
-                 kl_balancing_mix: float = 0.8):
+                 kl_balancing_mix: float = 0.8, replan_freq: int = 30):
         super().__init__()
         self.perceptual_encoder = perceptual_encoder
         self.plan_proposal = plan_proposal
@@ -46,6 +70,7 @@ class Hulc2(nn.Module):
         self.lang_task_head = lang_task_head
         self.dist = dist
         self.kl_balancing_mix = kl_balancing_mix
+        self.replan_freq = replan_freq
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def forward(self, batch: Dict, kl_beta: float, n_vis: int, deterministic: bool = False,
@@ -139,3 +164,50 @@ class Hulc2(nn.Module):
         acc = (logits.argmax(dim=-1) == labels).float()
         return {"lang_task_loss": (ce * valid).sum() / denom,
                 "lang_task_acc": (acc * valid).sum() / denom}
+
+    def init_carry(self, batch_size: int, device=None) -> PolicyCarry:
+        """A zero carry for ``batch_size`` envs, fp32, whose first step replans."""
+        dec = self.action_decoder
+        zeros = functools.partial(torch.zeros, dtype=torch.float32, device=device)
+        return PolicyCarry(
+            plan=zeros((batch_size, self.dist.plan_features)),
+            latent_goal=zeros((batch_size, self.visual_goal.ln.normalized_shape[0])),
+            hidden=zeros((dec.rnn.num_layers, batch_size, dec.rnn.hidden_size)),
+            step=torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        )
+
+    def policy_step(self, rgb_obs: Dict[str, torch.Tensor], robot_obs_raw: torch.Tensor,
+                    goal: Dict, carry: PolicyCarry, generator: Optional[torch.Generator] = None,
+                    draws: Optional[PolicyDraws] = None) -> Tuple[torch.Tensor, PolicyCarry]:
+        """One rollout step for B envs -> (world-frame action (B, 7), new carry).
+
+        ``rgb_obs`` holds transformed single frames (B, 1, H, W, C) per camera
+        and ``robot_obs_raw`` (B, 1, 15). ``goal`` is {"lang": token ids
+        (B, 77)}, which pass through the text tower on every step as in the
+        JAX package, or {"rgb_obs": goal frames} for visual goals. A new plan
+        and both action samples are drawn on every step; envs whose step
+        counter is a multiple of ``replan_freq`` take the new plan and goal and
+        restart the decoder from a zero state (``hulc2.py:394-400``)."""
+        emb = self.perceptual_encoder(rgb_obs)
+        if "lang" in goal:
+            latent_goal = self.language_goal(self.lang_net(goal["lang"]))
+        else:
+            latent_goal = self.visual_goal(self.perceptual_encoder(goal["rgb_obs"])[:, -1])
+        pp_logits = self.plan_proposal(emb[:, 0], latent_goal)
+        new_plan = self.dist.sample(pp_logits.float(), None if draws is None else draws.plan_gumbel,
+                                    generator)
+
+        replan = (carry.step % self.replan_freq) == 0  # (B,)
+        m = replan[:, None]
+        plan = torch.where(m, new_plan.to(carry.plan.dtype), carry.plan)
+        latent_goal = torch.where(m, latent_goal.to(carry.latent_goal.dtype), carry.latent_goal)
+        hidden = torch.where(replan[None, :, None], 0.0, carry.hidden)
+
+        dec = self.action_decoder
+        dec_out = dec(plan, emb, latent_goal, h0=hidden)
+        action = dec.sample_actions(dec_out, robot_obs_raw,
+                                    None if draws is None else draws.u_sel,
+                                    None if draws is None else draws.u, generator)
+        new_carry = PolicyCarry(plan, latent_goal, dec_out.hidden.to(carry.hidden.dtype),
+                                carry.step + 1)
+        return action[:, -1], new_carry

@@ -141,13 +141,14 @@ class ReluRNN(nn.Module):
         for p in self.parameters(recurse=False):
             _torch_uniform_(p, self.hidden_size, generator)
 
-    def forward(self, x: torch.Tensor):
-        """x (B, S, F), from a zero state -> outputs (B, S, H), h_n (L, B, H)."""
+    def forward(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
+        """x (B, S, F), from ``h0`` (L, B, H) or a zero state -> outputs
+        (B, S, H), h_n (L, B, H)."""
         h_last = []
         for k in range(self.num_layers):
             w_hh, b_hh = getattr(self, f"weight_hh_l{k}"), getattr(self, f"bias_hh_l{k}")
             x_proj = F.linear(x, getattr(self, f"weight_ih_l{k}"), getattr(self, f"bias_ih_l{k}"))
-            h = x_proj.new_zeros(x.shape[0], self.hidden_size)
+            h = x_proj.new_zeros(x.shape[0], self.hidden_size) if h0 is None else h0[k]
             outs = []
             for t in range(x.shape[1]):
                 h = F.relu(x_proj[:, t] + F.linear(h, w_hh, b_hh))

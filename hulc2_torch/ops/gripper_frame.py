@@ -1,6 +1,6 @@
-"""World -> TCP (tool-center-point) frame conversion of relative actions, fp32.
+"""World <-> TCP (tool-center-point) frame conversion of relative actions, fp32.
 
-Counterpart of ``hulc2_tpu/ops/gripper_frame.py:65``. Actions are 7-d:
+Counterpart of ``hulc2_tpu/ops/gripper_frame.py:65, :84``. Actions are 7-d:
 rel_pos(3), rel_orn_euler(3) scaled by 100, gripper(1); ``robot_obs`` dims 3:6
 hold the TCP orientation in the world frame. The math runs with autocast off
 and its 3x3 products are written elementwise, so neither bf16 nor TF32 can
@@ -33,3 +33,18 @@ def world_to_tcp_frame(action: torch.Tensor, robot_obs: torch.Tensor) -> torch.T
         tcp_new_T_tcp_old = _matmul3(world_T_tcp_new.transpose(-1, -2), world_T_tcp)
         orn_tcp_rel = wrap_angle(matrix_to_euler_angles(tcp_new_T_tcp_old)) / _ORN_SCALE
         return torch.cat([pos_tcp_rel, orn_tcp_rel, action[..., -1:]], dim=-1)
+
+
+def tcp_to_world_frame(action: torch.Tensor, robot_obs: torch.Tensor) -> torch.Tensor:
+    """Relative TCP-frame actions (..., 7) -> world frame, in fp32."""
+    with torch.autocast(device_type=action.device.type, enabled=False):
+        action = action.float()
+        orn_world = robot_obs[..., 3:6].float()
+        world_T_tcp = euler_angles_to_matrix(orn_world)
+        pos_w_rel = _matmul3(world_T_tcp, action[..., :3, None])[..., 0]
+        orn_tcp_rel = action[..., 3:6] * _ORN_SCALE
+        tcp_new_T_tcp_old = euler_angles_to_matrix(orn_tcp_rel)
+        world_T_tcp_new = _matmul3(world_T_tcp, tcp_new_T_tcp_old.transpose(-1, -2))
+        orn_w_new = matrix_to_euler_angles(world_T_tcp_new)
+        orn_w_rel = wrap_angle(orn_w_new - orn_world) / _ORN_SCALE
+        return torch.cat([pos_w_rel, orn_w_rel, action[..., -1:]], dim=-1)

@@ -1,11 +1,11 @@
-"""Discretized logistic mixture log-likelihood (counterpart of ``ops/logistic.py:17``).
+"""Discretized logistic mixture: log-likelihood and sampler (``ops/logistic.py:17, :82``).
 
 Params are (..., A, K) for A action dims and K components; targets (..., A).
-The sampler belongs to the rollout path and is not ported yet.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,3 +43,33 @@ def logistic_mixture_log_prob(logit_probs: torch.Tensor, log_scales: torch.Tenso
     )
     log_probs = log_probs + torch.log_softmax(logit_probs, dim=-1)
     return torch.logsumexp(log_probs, dim=-1)
+
+
+_U_LO, _U_HI = 1e-5, 1.0 - 1e-5  # the sampler's uniforms (logistic_decoder_rnn.py:235-249)
+
+
+def _mixture_uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Uniforms in [1e-5, 1 - 1e-5), the range the sampler draws from."""
+    if generator is None:
+        raise ValueError("the sampler needs injected uniforms or a generator")
+    u = torch.rand(shape, generator=generator, device=device)
+    return _U_LO + (_U_HI - _U_LO) * u
+
+
+def logistic_mixture_sample(logit_probs: torch.Tensor, log_scales: torch.Tensor,
+                            means: torch.Tensor, u_sel: Optional[torch.Tensor] = None,
+                            u: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Actions (..., A) sampled from the mixture: Gumbel-max over the K
+    components with uniforms ``u_sel`` (..., A, K), then inversion sampling of
+    the chosen logistic with uniforms ``u`` (..., A). Either may be handed in;
+    what is not comes from ``generator``."""
+    if u_sel is None:
+        u_sel = _mixture_uniform(logit_probs.shape, generator, logit_probs.device)
+    gumbel = logit_probs - torch.log(-torch.log(u_sel))
+    sel = F.one_hot(torch.argmax(gumbel, dim=-1), logit_probs.shape[-1]).to(means.dtype)
+    log_scale = (sel * log_scales).sum(dim=-1)
+    mean = (sel * means).sum(dim=-1)
+    if u is None:
+        u = _mixture_uniform(mean.shape, generator, mean.device)
+    return mean + torch.exp(log_scale) * (torch.log(u) - torch.log(1.0 - u))

@@ -1,18 +1,25 @@
-"""The fused train step (``hulc2_tpu/train/steps.py:24-88``).
+"""The fused train step and the fused rollout steps (``hulc2_tpu/train/steps.py``).
 
-One call: concatenate the raw uint8 vis and lang windows, run the transform
-(one shift_normalize launch per RGB camera over all B*S frames), the model
-forward under bf16 autocast, the loss with the CLIP and aux betas, backward
-through autograd, and one Adam update. Returns the metrics, ``loss`` and
-``grad_norm`` included, as detached tensors on the device.
+Train step (``:24-88``): concatenate the raw uint8 vis and lang windows, run
+the transform (one shift_normalize launch per RGB camera over all B*S
+frames), the model forward under bf16 autocast, the loss with the CLIP and
+aux betas, backward through autograd, and one Adam update. Returns the
+metrics, ``loss`` and ``grad_norm`` included, as detached tensors on the
+device.
+
+Rollout steps (``:146``, ``:178``): one call per env step for a batch of envs,
+under ``torch.inference_mode()``: [render the frames from the env states,]
+the val transform (one shift_normalize launch at pad 0 per camera), the
+policy step, then the gripper binarized to +-1. They return the device
+action without waiting for it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from hulc2_torch.models.hulc2 import Hulc2
+from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
 from hulc2_torch.utils.device import resolve_device
 
 
@@ -69,5 +76,59 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
         optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def _binarize_gripper(action: torch.Tensor) -> torch.Tensor:
+    grip = torch.where(action[..., -1] > 0, 1.0, -1.0).to(action.dtype)
+    return torch.cat([action[..., :-1], grip[..., None]], dim=-1)
+
+
+def _autocast(model: Hulc2, device: torch.device):
+    return torch.autocast(device_type=device.type, dtype=torch.bfloat16,
+                          enabled=device.type == "cuda" and model.compute_dtype == torch.bfloat16)
+
+
+def make_fused_policy_step(model: Hulc2, transform: Callable) -> Callable:
+    """fn(raw, goal, carry, generator, draws=None) -> (action (B, 7), carry).
+
+    ``raw`` holds (B, 1, H, W, 3) uint8 frames per camera and
+    ``robot_obs_raw`` (B, 1, 15) on the model's device; ``goal`` is
+    {"lang": token ids (B, 77)} or a visual goal (``Hulc2.policy_step``)."""
+    device = next(model.parameters()).device
+
+    def step(raw: Dict[str, torch.Tensor], goal: Dict, carry: PolicyCarry,
+             generator: Optional[torch.Generator],
+             draws: Optional[PolicyDraws] = None) -> Tuple[torch.Tensor, PolicyCarry]:
+        with torch.inference_mode(), _autocast(model, device):
+            tfd = transform(raw, generator)
+            action, carry = model.policy_step(tfd["rgb_obs"], tfd["robot_obs_raw"], goal, carry,
+                                              generator, draws)
+            return _binarize_gripper(action), carry
+
+    return step
+
+
+def make_fused_render_policy_step(model: Hulc2, transform: Callable, render_fn: Callable,
+                                  rgb_keys: Sequence[str]) -> Callable:
+    """fn(state, goal, carry, generator, draws=None) -> (action (B, 7), carry),
+    where ``state`` = {"robot_obs": (B, 15), "scene_obs": (B, 24)} float32 on
+    the model's device: the frames are rendered on the device
+    (``envs/render_torch.py``), then the step of ``make_fused_policy_step``."""
+    device = next(model.parameters()).device
+    policy_step = make_fused_policy_step(model, transform)
+
+    def step(state: Dict[str, torch.Tensor], goal: Dict, carry: PolicyCarry,
+             generator: Optional[torch.Generator],
+             draws: Optional[PolicyDraws] = None) -> Tuple[torch.Tensor, PolicyCarry]:
+        with torch.inference_mode():
+            robot = state["robot_obs"].float()
+            frames = render_fn(state["scene_obs"].float(), robot)
+            raw = {k: frames[k][:, None] for k in rgb_keys}
+            raw["robot_obs_raw"] = robot[:, None]
+            raw["actions"] = torch.zeros((robot.shape[0], 1, 7), dtype=torch.float32,
+                                         device=device)
+            return policy_step(raw, goal, carry, generator, draws)
 
     return step

@@ -69,6 +69,8 @@ def test_three_train_steps_track_jax(monkeypatch):
 
 def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, {repo!r}); import hulc2_torch, hulc2_torch.training, "
+            "hulc2_torch.evaluation.evaluate_policy, hulc2_torch.agents.hulc2_agent, "
+            "hulc2_torch.envs.render_torch, hulc2_torch.tools.profile_eval, "
             "chip_smoke; bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('hulc2_tpu')); print(bad); sys.exit(1 if bad else 0)").format(repo=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
