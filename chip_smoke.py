@@ -19,9 +19,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flagship width for a few steps, with every kernel launch count reset just
    before and read just after: losses finite, parameters moved, and
    shift_normalize launched exactly twice per step;
-7. (a) the kernel at pad 0, the evaluation's val transform, against its plain
-   version on 8 and 32 frames of 96x96 and 64x64, fp32 and bf16, bit for bit,
-   and its device time at the eval's 8 frames per camera;
+7. (a) the kernel at pad 0, the evaluation's val transform with the preset's
+   val mean and std, against its plain version on 4, 8 and 32 frames of 96x96
+   and 64x64 (4 and 8 are the evaluations' frames per camera and dispatch),
+   fp32 and bf16, bit for bit, and its device time at the eval's 8 frames per
+   camera;
 8. (b) the device renderer on the card against the same renderer on the CPU,
    32 evaluation initial states with perturbed robot poses: no pixel off by
    more than one, fewer than 1e-4 of them off at all, depth within 1e-5;
@@ -33,12 +35,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cohorts at the full flagship width, counts reset just before and read just
    after: 32 results in 0..5, results.json written, shift_normalize launched
    exactly twice per dispatch;
-11. the kernels line, the card line, and the final JSON line.
+11. (e) the port's generator (``python -m hulc2_torch.tools.make_expert_dataset``)
+   writes a small expert dataset at 96/64 px with token annotations;
+12. (f) device-store batches on the card, through the prefetcher, against the
+   same plan assembled on the host from the RAM cache, bit for bit, over two
+   epochs;
+13. (g) the disk path: ``python -m hulc2_torch.training`` from that dataset at
+   the full flagship width, one epoch of 20 steps and 2 val batches, then the
+   same command to a second epoch, which resumes from step 20, counts reset
+   before each run: losses and val metrics finite, config.json and both
+   checkpoints written, shift_normalize launched exactly 2 x train steps + 4 x
+   val steps; then the kernel against its plain version, bit for bit, on the
+   first validation batch (1024 frames per camera and modality) with the val
+   pipelines' mean and std, fp32 and bf16;
+14. (h) ``evaluate_policy --train-dir`` on that run, 8 chains: the loaded
+   parameters equal the checkpoint's, results.json written, shift_normalize
+   launched exactly twice per dispatch;
+15. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
 import json
+import logging
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -49,9 +69,19 @@ import torch
 
 MAIN_STEPS = 10
 WARM_STEPS = 2  # steps 0 and 1 carry cuDNN's algorithm search and allocator growth
-RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_run"
-EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
+BUILD = Path(__file__).resolve().parent / "build"
+RUN_DIR = BUILD / "chip_smoke_run"
+EVAL_DIR = BUILD / "chip_smoke_eval"
 EVAL_ENVS, EVAL_COHORTS, EVAL_CHAINS, EVAL_EP_LEN = 32, 4, 32, 360
+# the disk path: a dataset of about 1,700 + 220 frames (29 train batches of
+# 32 + 32 windows per epoch, 4 val batches), two runs of one epoch each cut
+# to DISK_STEPS steps and DISK_VAL val batches, then 8 chains of the trained run
+DATA_DIR = BUILD / "chip_smoke_data"
+DISK_RUN = BUILD / "chip_smoke_disk"
+DATA_EPISODES, DATA_TASKS, DATA_VAL_TASKS = 3, 12, 6
+LOADER_BATCHES = 3
+DISK_STEPS, DISK_VAL = 20, 2
+DISK_ENVS, DISK_COHORTS, DISK_CHAINS = 8, 2, 8
 
 
 def fail(msg: str) -> None:
@@ -275,27 +305,49 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     return launches
 
 
+def val_norm(cam: str) -> tuple:
+    """(mean, std) of the flagship preset's val pipeline for ``cam``."""
+    from hulc2_torch.configs.flagship import flagship_config
+    from hulc2_torch.data.device_transforms import TRANSFORM_PRESETS
+
+    norm = TRANSFORM_PRESETS[flagship_config()["datamodule"]["transforms"]]["val"][cam][-1]
+    return norm["mean"], norm["std"]
+
+
+def check_pad0(tag: str, imgs: torch.Tensor, mean, std) -> float:
+    """The kernel at pad 0 with zero offsets against its plain version on
+    ``imgs`` (N, H, W, 3) uint8 on the card, fp32 and bf16 out, tolerance 0;
+    returns the largest error."""
+    from hulc2_torch.ops import preprocess
+
+    offsets = torch.zeros((imgs.shape[0], 2), dtype=torch.int32, device=imgs.device)
+    err_max = 0.0
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = preprocess.random_shift_normalize(imgs, offsets, 0, mean, std, out_dtype)
+        want = preprocess.shift_normalize_plain(imgs, offsets, 0, mean, std, out_dtype)
+        torch.cuda.synchronize(imgs.device)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"[{tag}] shift_normalize {'x'.join(map(str, imgs.shape))} pad 0 mean {mean} std "
+              f"{std} {out_dtype}: max_abs_err {err:.3g} (tol 0)", flush=True)
+        if err > 0 or got.shape != want.shape or not torch.isfinite(got.float()).all():
+            fail(f"shift_normalize at pad 0 disagrees with its plain version on {tag} "
+                 f"{tuple(imgs.shape)} {out_dtype}")
+        err_max = max(err_max, err)
+    return err_max
+
+
 def phase_kernel_pad0(dev: torch.device) -> dict:
     """(a) The kernel at pad 0 with zero offsets, the val transform's
-    scale/normalize, against its plain version bit for bit; then its device
-    time at the eval's shapes (8 frames per camera and dispatch)."""
-    from hulc2_torch.ops import preprocess
+    scale/normalize with the preset's val mean and std, against its plain
+    version bit for bit on the evaluations' 4 and 8 frames per camera and
+    dispatch and on 32; then its device time at 8 frames per camera."""
     from hulc2_torch.tools import bench_shift_normalize as bench
 
     err_max = 0.0
-    for n in (8, 32):
-        for seed, hw in enumerate((96, 64)):
-            imgs, offsets = bench.make_sets(n, hw, 0, 1, dev, seed)[0]
-            for out_dtype in (torch.float32, torch.bfloat16):
-                got = preprocess.random_shift_normalize(imgs, offsets, 0, [0.5], [0.5], out_dtype)
-                want = preprocess.shift_normalize_plain(imgs, offsets, 0, [0.5], [0.5], out_dtype)
-                torch.cuda.synchronize(dev)
-                err = (got.float() - want.float()).abs().max().item()
-                print(f"[pad0] shift_normalize {n}x{hw}x{hw}x3 pad 0 {out_dtype}: max_abs_err "
-                      f"{err:.3g} (tol 0)", flush=True)
-                if err > 0 or got.shape != want.shape or not torch.isfinite(got.float()).all():
-                    fail(f"shift_normalize at pad 0 disagrees with its plain version ({n}, {hw})")
-                err_max = max(err_max, err)
+    for n in (DISK_ENVS // DISK_COHORTS, EVAL_ENVS // EVAL_COHORTS, 32):
+        for seed, (cam, hw) in enumerate((("rgb_static", 96), ("rgb_gripper", 64))):
+            imgs, _ = bench.make_sets(n, hw, 0, 1, dev, seed)[0]
+            err_max = max(err_max, check_pad0("pad0", imgs, *val_norm(cam)))
     k = EVAL_ENVS // EVAL_COHORTS
     totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": err_max}
     for seed, hw in enumerate((96, 64)):
@@ -428,6 +480,183 @@ def phase_eval(dev: torch.device, card: str) -> dict:
     return launches
 
 
+def phase_dataset() -> dict:
+    """(e) The port's generator writes a small expert dataset (96/64 px, token
+    annotations) from scratch; returns its frame counts."""
+    import numpy as np
+
+    from hulc2_torch.tools import make_expert_dataset
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_expert_dataset.main([str(DATA_DIR), "--episodes", str(DATA_EPISODES),
+                              "--tasks-per-episode", str(DATA_TASKS), "--val-episodes", "1",
+                              "--val-tasks-per-episode", str(DATA_VAL_TASKS), "--lang-tokens",
+                              "--holdout-paraphrases", "4", "--seed", "0"])
+    seconds = time.perf_counter() - t0
+    frames = {}
+    for split in ("training", "validation"):
+        ids = np.load(DATA_DIR / split / "ep_start_end_ids.npy")
+        frames[split] = int(sum(e - s + 1 for s, e in ids))
+    frame_bytes = 96 * 96 * 3 + 64 * 64 * 3
+    print(f"[dataset] {DATA_EPISODES} training episodes of {DATA_TASKS} tasks, 1 validation "
+          f"episode of {DATA_VAL_TASKS}: {frames['training']} + {frames['validation']} frames, "
+          f"training store {frames['training'] * frame_bytes} bytes of images, written in "
+          f"{seconds:.1f} s", flush=True)
+    return frames
+
+
+def phase_loader(dev: torch.device) -> None:
+    """(f) Device-store batches on the card, through the prefetcher, against
+    the same plan assembled on the host from the RAM cache
+    (``device_store.host_fused_batches``), bit for bit, for the first batches
+    of two epochs."""
+    from hulc2_torch.configs.flagship import flagship_config
+    from hulc2_torch.data.datamodule import Hulc2DataModule
+    from hulc2_torch.data.device_store import host_fused_batches
+    from hulc2_torch.data.loader import DevicePrefetcher
+
+    dm_cfg = flagship_config([f"datamodule.root_data_dir={DATA_DIR}"])["datamodule"]
+    host = Hulc2DataModule(dm_cfg, seed=42, device="cpu")
+    card = Hulc2DataModule(dm_cfg, seed=42, device=dev)
+    host.setup()
+    card.setup()
+    loader = card.fused_train_iter()
+    compared = 0
+    for epoch in range(2):
+        it = DevicePrefetcher(loader, dev)
+        plain = host_fused_batches(host.datasets["vis_training"], host.datasets["lang_training"],
+                                   dm_cfg["batch_size_vis"], dm_cfg["batch_size_lang"], 42, epoch)
+        for b, (got, want) in enumerate(zip(it, plain)):
+            if b == LOADER_BATCHES:
+                break
+            for k, w in want.items():
+                g = got[k].cpu().numpy()
+                if g.dtype != w.dtype or g.shape != w.shape or not (g == w).all():
+                    fail(f"device-store batch {b} of epoch {epoch} differs from the host plan on {k}")
+            compared += 1
+        it.close()
+    print(f"[loader] {compared} device-store batches of 2 epochs equal the host plan bit for bit "
+          f"(tol 0; {len(loader)} batches per epoch, {card.val_batches()} val batches)", flush=True)
+    return host
+
+
+def phase_val_kernel(dev: torch.device, dm) -> float:
+    """(g) The kernel at the validation step's shapes: each camera of each
+    modality of the first validation batch (``dm.val_iter``, the batches the
+    trainer's val steps read), moved to the card, through the kernel and its
+    plain version with the val pipelines' mean and std, tolerance 0."""
+    batches = dm.val_iter()
+    batch = next(batches)
+    batches.close()
+    err_max = 0.0
+    for m, window in batch.items():
+        for cam in dm.cfg["observation_space"]["rgb_obs"]:
+            b, s, h, w, c = window[cam].shape
+            imgs = torch.from_numpy(window[cam]).to(dev).reshape(b * s, h, w, c)
+            err_max = max(err_max, check_pad0(f"val {m} {cam}", imgs, *val_norm(cam)))
+    return err_max
+
+
+def phase_disk_train(dev: torch.device, card: str) -> tuple:
+    """(g) ``python -m hulc2_torch.training`` from the dataset at full flagship
+    width: one epoch, then the same command resumed to a second; each run
+    with the launch counts reset just before and read just after."""
+    from hulc2_torch import kernels, training
+
+    shutil.rmtree(DISK_RUN, ignore_errors=True)
+    argv = ["--run-dir", str(DISK_RUN), "--device", "cuda", f"datamodule.root_data_dir={DATA_DIR}",
+            f"trainer.limit_train_batches={DISK_STEPS}", f"trainer.limit_val_batches={DISK_VAL}",
+            "trainer.log_every_n_steps=1"]
+    results, launches = [], []
+    for epochs in (1, 2):
+        kernels.reset_launch_counts()
+        results.append(training.main(argv + ["--max-epochs", str(epochs)]))
+        torch.cuda.synchronize(dev)
+        launches.append(dict(kernels.LAUNCHES))
+    first, second = results
+    if first.resumed_from is not None or second.resumed_from != DISK_STEPS:
+        fail(f"the second run resumed from {second.resumed_from}, expected {DISK_STEPS}")
+    if (first.step, second.step) != (DISK_STEPS, 2 * DISK_STEPS):
+        fail(f"runs ended at steps {first.step}, {second.step}")
+    steps = [DISK_STEPS, 2 * DISK_STEPS]
+    ckpts = sorted(int(p.stem) for p in (DISK_RUN / "saved_models").glob("*.pt"))
+    if ckpts != steps or not (DISK_RUN / "config.json").is_file():
+        fail(f"checkpoints {ckpts} (expected {steps}) or config.json missing")
+    for r in results:
+        if len(r.history) != DISK_STEPS or len(r.val_history) != 1:
+            fail(f"{len(r.history)} train lines and {len(r.val_history)} val lines logged")
+        bad = [k for line in r.history + r.val_history for k, v in line.items()
+               if not math.isfinite(v)]
+        if bad:
+            fail(f"non-finite metrics: {sorted(set(bad))}")
+    for n in launches:
+        if n["shift_normalize"] != 2 * DISK_STEPS + 4 * DISK_VAL:
+            fail(f"shift_normalize launched {n['shift_normalize']} times for {DISK_STEPS} train "
+                 f"and {DISK_VAL} val steps, expected {2 * DISK_STEPS + 4 * DISK_VAL}")
+    steady = [(t, w) for r in results for t, w in zip(r.step_ms[WARM_STEPS:], r.wait_ms[WARM_STEPS:])]
+    step_ms = statistics.median(t for t, _ in steady)
+    wait_ms = statistics.median(w for _, w in steady)
+    val = second.val_history[0]
+    print(f"[disk] losses: " + ", ".join(f"{line['train/loss']:.4f}" for r in results
+                                         for line in r.history), flush=True)
+    print(f"[disk] val after epoch 2: " + ", ".join(
+        f"{k[4:]} {v:.4f}" for k, v in val.items() if k.startswith("val/")), flush=True)
+    print(f"[disk] 2 runs x {DISK_STEPS} steps + {DISK_VAL} val batches, resumed from step "
+          f"{second.resumed_from}; launches {launches}; step time {step_ms:.2f} ms (median of "
+          f"{len(steady)} steps after {WARM_STEPS} warm-up steps per run, each ending in a fetch "
+          f"of its metrics), of which waiting on the prefetcher {wait_ms:.3f} ms "
+          f"({100 * wait_ms / step_ms:.1f}%); device store {second.store_nbytes} bytes resident, "
+          f"uploaded in {first.store_upload_s:.3f} s and {second.store_upload_s:.3f} s; on {card}",
+          flush=True)
+    total = {k: sum(n[k] for n in launches) for k in launches[0]}
+    return second.model, total
+
+
+def phase_disk_eval(dev: torch.device, card: str, trained) -> dict:
+    """(h) ``evaluate_policy --train-dir`` on the trained run: the loaded
+    parameters equal the newest checkpoint's and the trained model's, and
+    the kernel launches twice per dispatch."""
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy
+    from hulc2_torch.evaluation.loading import load_policy
+
+    model, _, step = load_policy(DISK_RUN)
+    saved = torch.load(DISK_RUN / "saved_models" / f"{2 * DISK_STEPS}.pt", map_location="cpu",
+                       weights_only=True)["model"]
+    mine = {k: v.cpu() for k, v in trained.state_dict().items()}
+    loaded = model.state_dict()
+    if step != 2 * DISK_STEPS or not all(torch.equal(loaded[k], saved[k]) and torch.equal(loaded[k], mine[k])
+                                         for k in saved):
+        fail("the evaluation's parameters differ from the checkpoint's")
+    log_dir = DISK_RUN / "evaluation"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = evaluate_policy.main([
+        "--train-dir", str(DISK_RUN), "--fake-env", "--device-render", "--n-envs", str(DISK_ENVS),
+        "--cohorts", str(DISK_COHORTS), "--num-sequences", str(DISK_CHAINS), "--ep-len",
+        str(EVAL_EP_LEN), "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not (log_dir / "results.json").is_file():
+        fail("the evaluation of the trained run wrote no results.json")
+    diag = json.loads((log_dir / "eval_diagnostics.json").read_text())
+    if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or \
+            len({r["chain"] for r in diag["subtask_records"]}) != DISK_CHAINS:
+        fail(f"unexpected results: {merged['latest']}")
+    if launches["shift_normalize"] != 2 * diag["dispatches"]:
+        fail(f"shift_normalize launched {launches['shift_normalize']} times in "
+             f"{diag['dispatches']} dispatches")
+    print(f"[disk_eval] step {step} of {DISK_RUN.name}: {len(saved)} parameter tensors equal the "
+          f"checkpoint's; {DISK_CHAINS} chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts: "
+          f"avg_seq_len {merged['latest']['avg_seq_len']:.3f}; {diag['total_env_steps']} env "
+          f"steps in {diag['wall_clock_s']:.2f} s, {diag['dispatches']} dispatches; whole entry "
+          f"point {wall_s:.1f} s; launches {launches}; on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -436,6 +665,9 @@ def main() -> int:
     except ImportError as exc:
         fail(f"the hulc2_torch package is not importable from here: {exc}")
     dev = torch.device("cuda", 0)
+    # the trainer's lines (epochs, the resume, checkpoints) and warnings
+    logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    logging.getLogger("hulc2_torch.train.trainer").setLevel(logging.INFO)
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -448,21 +680,29 @@ def main() -> int:
     phase_renderer(dev)
     phase_policy_step(dev)
     eval_launches = phase_eval(dev, card)
+    phase_dataset()
+    host_dm = phase_loader(dev)
+    trained, disk_launches = phase_disk_train(dev, card)
+    val_err = phase_val_kernel(dev, host_dm)
+    disk_eval_launches = phase_disk_eval(dev, card, trained)
 
     entry = {
         "name": "shift_normalize",
         "route": "cuda",
         "source": "hulc2_torch/csrc/shift_normalize.cu",
         "replaces": "hulc2_tpu/ops/pallas_shift.py:52",
-        "launches": launches["shift_normalize"] + eval_launches["shift_normalize"],
-        "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"]),
+        "launches": sum(n["shift_normalize"] for n in (launches, eval_launches, disk_launches,
+                                                        disk_eval_launches)),
+        "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
         "bound_by": kernel["bound_by"],
         "library_ms": None,
         "launches_by_path": {"train": launches["shift_normalize"],
-                             "eval": eval_launches["shift_normalize"]},
+                             "eval": eval_launches["shift_normalize"],
+                             "disk_train": disk_launches["shift_normalize"],
+                             "disk_eval": disk_eval_launches["shift_normalize"]},
         "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "

@@ -3,8 +3,10 @@
 Equal, for every key it carries, to the JAX package's composition
 ``cfg_low_level`` with the overrides in ``FLAGSHIP_OVERRIDES`` (the round-5
 flagship recipe, ``docs/runs/r5_flagship/policy_config.json``); a test holds
-the two together. ``datamodule.root_data_dir`` is left out: this slice trains
-on synthetic windows only.
+the two together. Of the ``callbacks`` group only the checkpoint retention
+and the KL schedule are carried: the rollout and t-SNE callbacks are not
+ported. ``datamodule.root_data_dir`` names the dataset the trainer reads
+(``python -m hulc2_torch.tools.make_expert_dataset`` writes one).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ _BOUNDS_MIN = [-1.0] * 7
 
 FLAGSHIP: Dict[str, Any] = {
     "datamodule": {
+        "root_data_dir": "data/calvin_debug_dataset",
         "action_space": 7,
         "action_max": _BOUNDS_MAX,
         "action_min": _BOUNDS_MIN,
@@ -159,6 +162,17 @@ FLAGSHIP: Dict[str, Any] = {
         "lang_task_auxiliary_loss_beta": 1.0,
     },
     "training": {"lr": 0.0002, "max_epochs": 100, "precision": "bf16", "seed": 42},
+    "trainer": {
+        "max_epochs": 100,
+        "log_every_n_steps": 50,
+        "val_check_interval": 1.0,
+        "limit_train_batches": None,
+        "limit_val_batches": None,
+    },
+    "callbacks": {
+        "checkpoint": {"save_top_k": -1, "monitor": None, "every_n_epochs": 1},
+        "kl_schedule": {"kind": "constant", "kl_beta": 0.01},
+    },
     "seed": 42,
 }
 

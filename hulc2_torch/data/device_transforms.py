@@ -12,9 +12,14 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from hulc2_torch.data.statistics import DatasetStatistics
 from hulc2_torch.ops import preprocess
+
+# the keys of a language window that the model reads as they are
+LANG_KEYS = ("lang", "use_for_aux_lang_loss", "lang_task_id")
 
 TRANSFORM_PRESETS = {
     "rand_shift_96": {
@@ -69,30 +74,65 @@ def draw_offsets(n: int, pad: int, generator: torch.Generator, device) -> torch.
                          dtype=torch.int32)
 
 
-def process_proprio(robot_obs_raw: torch.Tensor, proprio_cfg: dict) -> torch.Tensor:
-    """Slice the proprioceptive state by ``keep_indices``
-    (``device_transforms.py:320``, without scene_obs). The JAX function also
-    normalizes with the dataset statistics; synthetic windows have none, and
-    without them its normalization is the identity. The statistics come with
-    the on-disk datamodule, which is not ported yet."""
-    return torch.cat([robot_obs_raw[..., lo:hi] for lo, hi in proprio_cfg["keep_indices"]], dim=-1)
+def _robot_obs_stats(stats: DatasetStatistics, device: torch.device, cache: Optional[Dict]):
+    """(mean, std) of robot_obs as fp32 tensors on ``device``. ``cache`` maps
+    a device to the pair already copied there; the batch transform keeps one,
+    because a copy from pageable memory on every step would synchronise the
+    stream."""
+    if cache is None:
+        cache = {}
+    if device not in cache:
+        cache[device] = tuple(torch.as_tensor(np.asarray(a, np.float32)).to(device)
+                              for a in (stats.robot_obs_mean, stats.robot_obs_std))
+    return cache[device]
+
+
+def process_proprio(robot_obs_raw: torch.Tensor, proprio_cfg: dict,
+                    stats: Optional[DatasetStatistics] = None,
+                    cache: Optional[Dict] = None) -> torch.Tensor:
+    """Normalize robot_obs with the dataset statistics, then slice it by
+    ``keep_indices`` (``device_transforms.py:320-348``): with
+    ``normalize_robot_orientation`` false the orientation dims stay raw, with
+    ``normalize`` false nothing is normalized. Without statistics (or without
+    robot_obs statistics in them) the normalization is the identity.
+    ``cache`` (device -> (mean, std) tensors) keeps the statistics' device
+    copies between calls. scene_obs is not in the flagship's state_obs and is
+    not ported."""
+    normed = robot_obs_raw
+    if stats is not None and stats.robot_obs_mean is not None:
+        mean, std = _robot_obs_stats(stats, robot_obs_raw.device, cache)
+        normed = preprocess.normalize_vector(robot_obs_raw, mean, std)
+    if (not proprio_cfg.get("normalize_robot_orientation", True)
+            and "robot_orientation_idx" in proprio_cfg):
+        lo, hi = proprio_cfg["robot_orientation_idx"]
+        normed = torch.cat([normed[..., :lo], robot_obs_raw[..., lo:hi], normed[..., hi:]], dim=-1)
+    if not proprio_cfg.get("normalize", True):
+        normed = robot_obs_raw
+    return torch.cat([normed[..., lo:hi] for lo, hi in proprio_cfg["keep_indices"]], dim=-1)
 
 
 def make_batch_transform(observation_space: dict, proprio_cfg: dict,
                          transforms_name: str = "rand_shift_96",
-                         dtype: torch.dtype = torch.float32, train: bool = True) -> Callable:
+                         dtype: torch.dtype = torch.float32, train: bool = True,
+                         stats: Optional[DatasetStatistics] = None) -> Callable:
     """fn(raw, generator, offsets=None) -> model batch. ``raw`` holds
     (B, S, H, W, C) uint8 frames per camera, ``robot_obs_raw`` and
     ``actions``; ``offsets`` optionally maps each camera to its (B*S, 2)
-    int32 crop offsets. Images come out NHWC in ``dtype``. With
-    ``train=False`` the val pipelines run: no crop, no draws."""
+    int32 crop offsets. Images come out NHWC in ``dtype``; robot_obs is
+    normalized with ``stats`` (the split's ``statistics.yaml``); the language
+    keys of a lang batch pass through. With ``train=False`` the val pipelines
+    run: no crop, no draws."""
     pipelines = TRANSFORM_PRESETS[transforms_name]["train" if train else "val"]
     cams = {cam: _fused_ops(pipelines[cam]) for cam in observation_space["rgb_obs"]}
     if observation_space.get("depth_obs"):
         raise NotImplementedError("depth cameras are not ported")
+    if "scene_obs" in observation_space.get("state_obs", ()):
+        raise NotImplementedError("scene_obs proprioception is not ported")
     # the val pipelines' zero offsets, made once per (frames, device): a fresh
-    # tensor per call would be an allocation and a fill on every dispatch
+    # tensor per call would be an allocation and a fill on every dispatch;
+    # likewise robot_obs's mean and std, copied once per device
     zero_offsets: Dict = {}
+    proprio_stats: Dict = {}
 
     def no_shift(n: int, device) -> torch.Tensor:
         key = (n, device)
@@ -118,9 +158,12 @@ def make_batch_transform(observation_space: dict, proprio_cfg: dict,
                     off = draw_offsets(b * s, pad, generator, imgs.device)
             res = preprocess.random_shift_normalize(frames, off, pad, mean, std, dtype)
             out["rgb_obs"][cam] = res.reshape(b, s, h, w, c)
-        out["robot_obs"] = process_proprio(raw["robot_obs_raw"], proprio_cfg)
+        out["robot_obs"] = process_proprio(raw["robot_obs_raw"], proprio_cfg, stats, proprio_stats)
         out["robot_obs_raw"] = raw["robot_obs_raw"]
         out["actions"] = raw["actions"]
+        for k in LANG_KEYS:
+            if k in raw:
+                out[k] = raw[k]
         return out
 
     return transform

@@ -1,14 +1,20 @@
 """CALVIN chain evaluation of a policy on the interactive fake env.
 
-    python -m hulc2_torch.evaluation.evaluate_policy --synthetic --fake-env \\
-        [--device-render] [--n-envs 32] [--cohorts 4] [--num-sequences 1000] \\
-        [--ep-len 360] [--log-dir DIR] [--device cuda|cpu] [key=value ...]
+    python -m hulc2_torch.evaluation.evaluate_policy --train-dir RUN [--checkpoint STEP] \\
+        --fake-env [--device-render] [--n-envs 32] [--cohorts 4] \\
+        [--num-sequences 1000] [--ep-len 360] [--log-dir DIR] [--device cuda|cpu]
+    python -m hulc2_torch.evaluation.evaluate_policy --synthetic --fake-env ... [key=value ...]
 
 The port's counterpart of the fake-env branch of
-``hulc2_tpu/evaluation/evaluate_policy.py:124``. ``--synthetic`` evaluates the
-flagship policy (``configs/flagship.py`` with dotted ``key=value`` overrides)
-with random weights from ``build_policy(cfg, seed)``, the convention of
-``python -m hulc2_torch.training --synthetic``. The goal of each subtask is the
+``hulc2_tpu/evaluation/evaluate_policy.py:124``. ``--train-dir`` evaluates a
+policy trained by ``python -m hulc2_torch.training``: the model is built from
+the run's ``config.json`` and loaded from its newest checkpoint, or the step
+``--checkpoint`` names; results go under the key "latest" or that step, in
+``<train-dir>/evaluation`` unless ``--log-dir`` says otherwise. The fake
+envs render at the run's transform preset's sizes. ``--synthetic`` evaluates
+the flagship policy (``configs/flagship.py`` with dotted ``key=value``
+overrides) with random weights from ``build_policy(cfg, seed)``, the
+convention of ``python -m hulc2_torch.training --synthetic``. The goal of each subtask is the
 BPE token ids of the task's canonical sentence, which the policy's text tower
 encodes on every step. ``--n-envs`` fake envs run in lockstep in ``--cohorts``
 cohorts whose policy steps overlap (``batched_eval.PipelinedEvaluator``);
@@ -19,9 +25,11 @@ oracle. The agents' draws come from generators seeded from the config's
 ``partial_results.json`` to ``--log-dir``.
 
 Runs on the card unless ``--device cpu`` is given, and refuses to run without
-one. Not ported yet: ``--train-dir`` (the port's checkpoints), the real CALVIN
-env, the hierarchical mode, the process env farm and the paraphrase and
-single-step protocols.
+one. Not ported yet: ``--all-checkpoints``, the real CALVIN env, the
+hierarchical mode, the process env farm and the paraphrase and single-step
+protocols. As in the JAX package, the fake-env agents normalize no
+proprioception with the dataset statistics (the flagship has no proprio
+encoder, so its actions do not depend on it).
 """
 from __future__ import annotations
 
@@ -80,13 +88,33 @@ def cohort_sizes(n_envs: int, cohorts: int) -> list:
     return [n_envs // n + (1 if c < n_envs % n else 0) for c in range(n)]
 
 
+def _check_run_dir(p: argparse.ArgumentParser, run_dir: Path, step: Optional[int],
+                   overrides) -> None:
+    """Refuse, through the parser, a run dir the port cannot load."""
+    from hulc2_torch.core.checkpoint import CheckpointManager
+
+    steps = CheckpointManager(run_dir).all_steps()
+    if not (run_dir / "config.json").is_file():
+        p.error(f"--train-dir {run_dir}: no config.json (not a training run of the port)")
+    if not steps:
+        p.error(f"--train-dir {run_dir}: no checkpoints under saved_models/")
+    if step is not None and step not in steps:
+        p.error(f"--checkpoint {step}: the run has steps {steps}")
+    if overrides:
+        p.error("config overrides apply to --synthetic only: a run's config is its own")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--synthetic", action="store_true",
                    help="the flagship policy with random weights from the config's seed")
     p.add_argument("--train-dir", default=None,
-                   help="a training run to load (not ported: the port has no checkpoints yet)")
+                   help="a training run dir of the port (config.json + saved_models) to load")
+    p.add_argument("--checkpoint", type=int, default=None,
+                   help="with --train-dir: the step to load (default: the newest)")
+    p.add_argument("--all-checkpoints", action="store_true",
+                   help="evaluate every checkpoint of the run (not ported)")
     p.add_argument("--fake-env", action="store_true",
                    help="the interactive FakeCalvinEnv backend (the only one ported)")
     p.add_argument("--device-render", action="store_true",
@@ -96,15 +124,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                    help="cohorts of envs whose policy steps overlap with the others' host sims")
     p.add_argument("--num-sequences", type=int, default=harness.NUM_SEQUENCES)
     p.add_argument("--ep-len", type=int, default=harness.EP_LEN)
-    p.add_argument("--log-dir", default="runs/torch_eval")
+    p.add_argument("--log-dir", default=None,
+                   help="output dir (default: <train-dir>/evaluation, or runs/torch_eval)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
+    p.add_argument("overrides", nargs="*",
+                   help="dotted key=value config overrides (with --synthetic)")
     args = p.parse_args(argv)
+    if args.all_checkpoints:
+        p.error("--all-checkpoints is not ported (ROADMAP A7): evaluate one step with "
+                "--checkpoint STEP")
+    if args.synthetic == (args.train_dir is not None):
+        p.error("give exactly one policy source: --train-dir RUN or --synthetic")
     if args.train_dir is not None:
-        p.error("--train-dir is not ported yet: the port has no checkpoints (ROADMAP A4); "
-                "use --synthetic")
-    if not args.synthetic:
-        p.error("--synthetic is required (the only policy source ported so far)")
+        _check_run_dir(p, Path(args.train_dir), args.checkpoint, args.overrides)
     if not args.fake_env:
         p.error("--fake-env is required: the real CALVIN env is not ported")
 
@@ -116,6 +148,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from hulc2_torch.envs.calvin_wrapper import EnvFarm
     from hulc2_torch.envs.fake_env import FakeCalvinEnv
     from hulc2_torch.evaluation.batched_eval import PipelinedEvaluator
+    from hulc2_torch.evaluation.loading import load_policy
     from hulc2_torch.evaluation.tasks import TASK_NAMES
     from hulc2_torch.models.build import build_policy
     from hulc2_torch.tools.annotations import VALIDATION_BANK
@@ -125,11 +158,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     t0 = time.time()
     device = resolve_device(args.device)
     set_precision_flags()
-    cfg = flagship_config(args.overrides)
-    sizes = camera_sizes(cfg["datamodule"]["transforms"])
-    model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"], seed=cfg["seed"])
+    if args.train_dir is not None:
+        model, cfg, step = load_policy(args.train_dir, args.checkpoint)
+        results_key = str(args.checkpoint) if args.checkpoint is not None else "latest"
+        log_dir = Path(args.log_dir or Path(args.train_dir) / "evaluation")
+        logger.info("policy: step %d of %s", step, args.train_dir)
+        sizes = camera_sizes(cfg["datamodule"]["transforms"])
+    else:
+        cfg = flagship_config(args.overrides)
+        sizes = camera_sizes(cfg["datamodule"]["transforms"])
+        model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"], seed=cfg["seed"])
+        results_key = "synthetic"
+        log_dir = Path(args.log_dir or "runs/torch_eval")
     model = model.to(device).eval()
-    log_dir = Path(args.log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     sequences = get_sequences(args.num_sequences)
     # goals: BPE token ids of each task's canonical validation sentence
@@ -153,7 +194,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     results = ev.evaluate(sequences=sequences)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    merged = harness.print_and_save({"synthetic": results}, log_dir, sequences=sequences)
+    merged = harness.print_and_save({results_key: results}, log_dir, sequences=sequences)
     diag = save_eval_diagnostics(ev, log_dir, args, sequences)
     logger.info("evaluation: %d chains, %d env steps in %.1f s (%.1f env-steps/s), %d dispatches, "
                 "wall clock %.1f s", len(results), diag["total_env_steps"], diag["wall_clock_s"],

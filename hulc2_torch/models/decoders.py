@@ -54,16 +54,20 @@ class LogisticPolicyDecoder(nn.Module):
         self.mean_fc = Dense(hidden_size, a_k)
         self.log_scale_fc = Dense(hidden_size, a_k)
         self.gripper_fc = Dense(hidden_size, 2)
-        # the gripper's two action values; a buffer, so that sampling makes no
-        # host-to-device copy (which would synchronise the stream)
+        # the gripper's two action values and the continuous dims' bounds are
+        # buffers, so that neither sampling nor the loss makes a host-to-device
+        # copy (a copy from pageable memory synchronises the stream)
         self.register_buffer("gripper_bounds", torch.tensor(
             [self.act_min_bound[-1], self.act_max_bound[-1]], dtype=torch.float32), persistent=False)
+        self.register_buffer("act_min", torch.tensor(
+            self.act_min_bound[:-1], dtype=torch.float32)[:, None], persistent=False)
+        self.register_buffer("act_max", torch.tensor(
+            self.act_max_bound[:-1], dtype=torch.float32)[:, None], persistent=False)
 
-    def bounds(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(act_min, act_max) of the continuous dims as (A-1, 1), broadcasting over K."""
-        lo = torch.tensor(self.act_min_bound[:-1], dtype=torch.float32, device=device)[:, None]
-        hi = torch.tensor(self.act_max_bound[:-1], dtype=torch.float32, device=device)[:, None]
-        return lo, hi
+    def bounds(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(act_min, act_max) of the continuous dims as (A-1, 1), broadcasting
+        over K, on the module's device."""
+        return self.act_min, self.act_max
 
     def forward(self, latent_plan: torch.Tensor, perceptual_emb: torch.Tensor,
                 latent_goal: torch.Tensor, h0: Optional[torch.Tensor] = None) -> DecoderOutput:

@@ -109,6 +109,57 @@ class Hulc2(nn.Module):
         metrics.update(kl_loss=kl_loss, action_loss=action_loss, total_loss=kl_loss + action_loss)
         return metrics
 
+    def val_forward(self, batch: Dict[str, Dict], kl_beta: float,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Dict[str, PolicyDraws]] = None) -> Dict[str, torch.Tensor]:
+        """Validation metrics of one {"vis": ..., "lang": ...} batch, each
+        modality transformed on its own (``hulc2.py:287-337``): the decoder
+        under a plan sampled from the proposal ("pp") and from the recognition
+        network ("pr"), each with its action loss, the MAE of sampled actions
+        (total, position, orientation) and the gripper success rate per
+        modality; the balanced KL per modality; the CLIP loss of the lang rows.
+        No dropout. ``draws`` maps "pp" and "pr" to the plan's Gumbel noise
+        and the mixture's uniforms (B, S, A-1, K) and (B, S, A-1); without
+        them the draws come from ``generator``."""
+        vis, lang = batch["vis"], batch["lang"]
+        n_vis = vis["actions"].shape[0]
+        rgb_obs = {k: torch.cat([vis["rgb_obs"][k], lang["rgb_obs"][k]]) for k in vis["rgb_obs"]}
+        actions = torch.cat([vis["actions"], lang["actions"]])
+        robot_obs_raw = torch.cat([vis["robot_obs_raw"], lang["robot_obs_raw"]])
+        splits = {"vis": (0, n_vis), "lang": (n_vis, actions.shape[0])}
+
+        lang_emb = self.lang_net(lang["lang"])
+        emb = self.perceptual_encoder(rgb_obs)
+        latent_goal = torch.cat([self.visual_goal(emb[:n_vis, -1]), self.language_goal(lang_emb)])
+        pp_logits = self.plan_proposal(emb[:, 0], latent_goal)
+        pr_logits, seq_feat = self.plan_recognition(emb)
+
+        dec = self.action_decoder
+        metrics: Dict[str, torch.Tensor] = {}
+        for tag, logits in (("pp", pp_logits), ("pr", pr_logits)):
+            d = None if draws is None else draws[tag]
+            plan = self.dist.sample(logits.float(), None if d is None else d.plan_gumbel, generator)
+            dec_out = dec(plan, emb, latent_goal)
+            act_ps = self.action_loss_per_sample(dec_out, actions, robot_obs_raw)
+            sampled = dec.sample_actions(dec_out, robot_obs_raw, None if d is None else d.u_sel,
+                                         None if d is None else d.u, generator)
+            with torch.autocast(device_type=actions.device.type, enabled=False):
+                mae = (sampled[..., :-1] - actions[..., :-1]).abs().mean(dim=1)  # (B, A-1)
+                grip_pred = torch.where(sampled[..., -1] > 0, 1.0, -1.0)
+                grip_sr = (grip_pred == actions[..., -1]).float().mean(dim=-1)
+            for m, (lo, hi) in splits.items():
+                metrics[f"{m}_act_loss_{tag}"] = act_ps[lo:hi].mean()
+                metrics[f"{m}_total_mae_{tag}"] = mae[lo:hi].mean()
+                metrics[f"{m}_pos_mae_{tag}"] = mae[lo:hi, :3].mean()
+                metrics[f"{m}_orn_mae_{tag}"] = mae[lo:hi, 3:6].mean()
+                metrics[f"{m}_grip_sr_{tag}"] = grip_sr[lo:hi].mean()
+        kl = self.balanced_kl_per_sample(pp_logits, pr_logits)
+        for m, (lo, hi) in splits.items():
+            metrics[f"{m}_kl_loss"] = kl_beta * kl[lo:hi].mean()
+        metrics["val_pred_clip_loss"] = self.clip_auxiliary_loss(
+            seq_feat[n_vis:], latent_goal[n_vis:], lang["use_for_aux_lang_loss"])
+        return metrics
+
     def balanced_kl_per_sample(self, pp_logits: torch.Tensor, pr_logits: torch.Tensor) -> torch.Tensor:
         alpha = self.kl_balancing_mix
         lhs = self.dist.kl_divergence(pr_logits.detach(), pp_logits)
@@ -123,7 +174,7 @@ class Hulc2(nn.Module):
         with torch.autocast(device_type=actions.device.type, enabled=False):
             if dec.gripper_control:
                 actions = world_to_tcp_frame(actions, robot_obs_raw)
-            amin, amax = dec.bounds(actions.device)
+            amin, amax = dec.bounds()
             lp = logistic_mixture_log_prob(
                 dec_out.logit_probs, dec_out.log_scales, dec_out.means, actions[..., :-1],
                 amin, amax, dec.num_classes, dec.log_scale_min)

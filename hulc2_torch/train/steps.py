@@ -19,6 +19,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from hulc2_torch.data.device_transforms import LANG_KEYS
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
 from hulc2_torch.utils.device import resolve_device
 
@@ -34,10 +35,13 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
                     device=None) -> Callable:
     """fn(raw_batch, generator, kl_beta, offsets=None, gumbel=None) -> metrics.
 
-    ``raw_batch`` is {"vis": window dict, "lang": window dict}; ``offsets``
-    and ``gumbel`` replace the crop offsets and the plan sampler's draw (the
-    parity tests hand in the same draws as the JAX side). Raises unless the
-    model lives on ``device`` (CUDA unless ``device="cpu"`` is asked for).
+    ``raw_batch`` is {"vis": window dict, "lang": window dict}, or one batch
+    with [vis; lang] rows already fused, as the device-store loader yields it
+    (``hulc2_tpu/train/steps.py:41-47``: n_vis is its action rows less its
+    lang rows). ``offsets`` and ``gumbel`` replace the crop offsets and the
+    plan sampler's draw (the parity tests hand in the same draws as the JAX
+    side). Raises unless the model lives on ``device`` (CUDA unless
+    ``device="cpu"`` is asked for).
     """
     device = resolve_device(device)
     param_device = next(model.parameters()).device
@@ -46,18 +50,19 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
     use_autocast = device.type == "cuda" and getattr(model, "compute_dtype", None) == torch.bfloat16
     aux_betas = dict(aux_betas or {})
 
-    def step(raw_batch: Dict[str, Dict[str, torch.Tensor]], generator: torch.Generator,
+    def step(raw_batch: Dict, generator: torch.Generator,
              kl_beta: float, offsets: Optional[Dict[str, torch.Tensor]] = None,
              gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        vis, lang = raw_batch["vis"], raw_batch["lang"]
-        n_vis = vis["actions"].shape[0]
-        # fuse BEFORE the transform: the uint8 concat moves a quarter of the bytes
-        shared = [k for k in vis if k in lang]
-        batch = transform({k: torch.cat([vis[k], lang[k]], dim=0) for k in shared},
-                          generator, offsets)
-        for k in ("lang", "use_for_aux_lang_loss", "lang_task_id"):
-            if k in lang:
-                batch[k] = lang[k]
+        if "actions" in raw_batch:  # fused on the host or by the store's gather
+            fused = raw_batch
+            n_vis = fused["actions"].shape[0] - fused["lang"].shape[0]
+        else:
+            vis, lang = raw_batch["vis"], raw_batch["lang"]
+            n_vis = vis["actions"].shape[0]
+            # fuse BEFORE the transform: the uint8 concat moves a quarter of the bytes
+            fused = {k: torch.cat([vis[k], lang[k]], dim=0) for k in vis if k in lang}
+            fused.update({k: lang[k] for k in LANG_KEYS if k in lang})
+        batch = transform(fused, generator, offsets)
         model.train()
         with torch.autocast(device_type=device.type, dtype=torch.bfloat16, enabled=use_autocast):
             metrics = model(batch, kl_beta, n_vis, deterministic=False, generator=generator,
@@ -75,6 +80,27 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
         metrics["grad_norm"] = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
         optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_val_step(model: Hulc2, transform: Callable) -> Callable:
+    """fn(raw_batch, generator, kl_beta=0.01, draws=None) -> metrics
+    (``hulc2_tpu/train/steps.py:91-99``): each modality of a {"vis": ...,
+    "lang": ...} batch goes through the val ``transform`` on its own (the
+    shift_normalize kernel at pad 0, one launch per camera), then
+    ``Hulc2.val_forward`` without gradients. The JAX step leaves kl_beta at
+    ``val_forward``'s default of 0.01, and so does the trainer here."""
+    device = next(model.parameters()).device
+
+    def step(raw_batch: Dict[str, Dict[str, torch.Tensor]], generator: Optional[torch.Generator],
+             kl_beta: float = 0.01, draws: Optional[Dict[str, PolicyDraws]] = None
+             ) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with torch.no_grad(), _autocast(model, device):
+            batch = {m: transform(raw_batch[m], None) for m in raw_batch}
+            metrics = model.val_forward(batch, kl_beta, generator, draws)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

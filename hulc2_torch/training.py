@@ -1,19 +1,31 @@
 """Policy training entry point of the port.
 
+    python -m hulc2_torch.training --run-dir DIR [--max-epochs N] [--max-steps K]
+        [--device cuda|cpu] datamodule.root_data_dir=DATASET [key=value ...]
     python -m hulc2_torch.training --synthetic --max-steps 3 [--device cuda|cpu]
         [--run-dir DIR] [key=value ...]
 
 Builds the flagship policy from ``configs/flagship.py`` (dotted ``key=value``
-overrides, e.g. ``model.plan_proposal.hidden_size=64`` or ``seed=3``) and takes
-``--max-steps`` fused train steps on synthetic windows made on the device.
-Each step appends one line to ``<run-dir>/metrics.jsonl`` with its losses and
-its wall time (host clock around the step, ending in a device synchronise).
-Checkpoints, validation and the on-disk datamodule are not ported yet.
+overrides, e.g. ``trainer.limit_val_batches=6``,
+``model.plan_proposal.hidden_size=64`` or ``seed=3``).
+
+From disk (``datamodule.root_data_dir``, a dataset written by
+``python -m hulc2_torch.tools.make_expert_dataset``), ``train/trainer.py``
+trains with the training split's frames resident on the device, validates
+every epoch and checkpoints into ``<run-dir>/saved_models``; the run dir's
+``config.json`` and checkpoints are what ``evaluate_policy --train-dir``
+loads. Run again with more epochs, it resumes from its newest checkpoint.
+
+``--synthetic`` takes ``--max-steps`` fused train steps on synthetic windows
+made on the device, without validation or checkpoints. Each step appends one
+line to ``<run-dir>/metrics.jsonl`` with its losses and its wall time (host
+clock around the step, ending in a device synchronise).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 import time
 from dataclasses import dataclass, field
@@ -23,12 +35,14 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from hulc2_torch.configs.flagship import flagship_config
+from hulc2_torch.data.datamodule import Hulc2DataModule
 from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
 from hulc2_torch.data.random_data import RandomWindowBatches
 from hulc2_torch.models.build import build_policy
 from hulc2_torch.models.hulc2 import Hulc2
 from hulc2_torch.train.optim import make_optimizer
 from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+from hulc2_torch.train.trainer import FitResult, Trainer
 from hulc2_torch.utils.device import resolve_device, set_precision_flags
 
 
@@ -66,6 +80,9 @@ class SyntheticRun:
         self.generator = torch.Generator(device=device).manual_seed(seed + 1)
         self.kl_beta = cfg["loss"]["kl_beta"]
 
+    def next_batch(self) -> Dict:
+        return self.data.next_batch()
+
     def step(self, raw: Dict) -> Dict[str, torch.Tensor]:
         return self.train_step(raw, self.generator, self.kl_beta)
 
@@ -80,7 +97,7 @@ def train(cfg: dict, max_steps: int, device, run_dir: str) -> TrainResult:
     result = TrainResult(run.model)
     with open(Path(run_dir) / "metrics.jsonl", "a") as metrics_file:
         for i in range(max_steps):
-            raw = run.data.next_batch()
+            raw = run.next_batch()
             _synchronize(run.device)
             t0 = time.perf_counter()
             metrics = run.step(raw)
@@ -101,18 +118,38 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
+def fit(cfg: dict, run_dir, max_epochs: Optional[int] = None, max_steps: Optional[int] = None,
+        device=None) -> FitResult:
+    """Train the policy ``cfg`` from the dataset at ``datamodule.root_data_dir``
+    into ``run_dir``, resuming from its newest checkpoint."""
+    dm = Hulc2DataModule(cfg["datamodule"], seed=cfg.get("seed", 42), device=device)
+    dm.setup()
+    return Trainer(cfg, dm, run_dir, device=dm.device).fit(max_epochs, max_steps)
+
+
+def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--synthetic", action="store_true", required=True,
-                        help="train on synthetic windows (the only data source ported so far)")
-    parser.add_argument("--max-steps", type=int, required=True)
+    parser.add_argument("--synthetic", action="store_true",
+                        help="train on synthetic windows made on the device")
+    parser.add_argument("--max-steps", type=int, default=None,
+                        help="stop after this many steps (required with --synthetic)")
+    parser.add_argument("--max-epochs", type=int, default=None,
+                        help="train up to this epoch (default: training.max_epochs)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--run-dir", default="runs/torch_synthetic")
+    parser.add_argument("--run-dir", default=None,
+                        help="run dir (default: runs/torch_synthetic or runs/torch_train)")
     parser.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
-    args = parser.parse_args(argv)
-    return train(flagship_config(args.overrides), args.max_steps, args.device, args.run_dir)
+    args = parser.parse_intermixed_args(argv)
+    cfg = flagship_config(args.overrides)
+    if args.synthetic:
+        if args.max_steps is None:
+            parser.error("--synthetic needs --max-steps")
+        return train(cfg, args.max_steps, args.device, args.run_dir or "runs/torch_synthetic")
+    return fit(cfg, args.run_dir or "runs/torch_train", args.max_epochs, args.max_steps,
+               args.device)
 
 
 if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     main(sys.argv[1:])

@@ -283,7 +283,9 @@ class TestCli:
         import torch
         from hulc2_torch.evaluation import evaluate_policy
 
-        for argv in (["--train-dir", "x", "--fake-env"], ["--synthetic"], ["--fake-env"]):
+        for argv in (["--train-dir", "x", "--fake-env"], ["--synthetic"], ["--fake-env"],
+                     ["--train-dir", "x", "--all-checkpoints", "--fake-env"],
+                     ["--synthetic", "--train-dir", "x", "--fake-env"]):
             with pytest.raises(SystemExit):
                 evaluate_policy.main(argv + ["--log-dir", str(tmp_path)])
         if not torch.cuda.is_available():
@@ -295,7 +297,11 @@ def test_host_copies_import_without_torch():
     mods = ["hulc2_torch.evaluation.sequences", "hulc2_torch.evaluation.batched_eval",
             "hulc2_torch.evaluation.harness", "hulc2_torch.envs.fake_env",
             "hulc2_torch.envs.calvin_wrapper", "hulc2_torch.envs.task_oracle",
-            "hulc2_torch.utils.clip_tokenizer", "hulc2_torch.tools.annotations"]
+            "hulc2_torch.utils.clip_tokenizer", "hulc2_torch.tools.annotations",
+            "hulc2_torch.envs.scripted_expert", "hulc2_torch.tools.auto_lang_annotator",
+            "hulc2_torch.tools.make_expert_dataset", "hulc2_torch.data.statistics",
+            "hulc2_torch.data.episode_index", "hulc2_torch.data.frame_store",
+            "hulc2_torch.data.window_dataset"]
     code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import " + ", ".join(mods)
             + "; bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax'));"
             " print(bad); sys.exit(1 if bad else 0)")

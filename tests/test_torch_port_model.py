@@ -186,6 +186,9 @@ def test_flagship_config_equals_jax_composition():
 
     check(mine, composed, "")
     assert set(mine["model"]) == set(composed["model"])
+    # what the disk path reads: the dataset dir and the whole trainer section
+    assert mine["datamodule"]["root_data_dir"] == composed["datamodule"]["root_data_dir"]
+    assert mine["trainer"] == composed["trainer"]
 
 
 def test_small_overrides_apply():

@@ -67,10 +67,48 @@ def test_three_train_steps_track_jax(monkeypatch):
                                        err_msg=f"step {i} {k}")
 
 
+def test_action_bounds_are_buffers_and_the_step_makes_none(monkeypatch):
+    """The decoder's continuous-dim bounds are non-persistent buffers that
+    move with the module, and a train step builds no tensor on a device from
+    host values (on the card that is a pageable copy, which synchronises the
+    stream)."""
+    from hulc2_torch.models.build import build_policy
+
+    cfg = small_config()
+    model = build_policy(cfg["model"], seed=1)
+    dec = model.action_decoder
+    lo, hi = dec.bounds()
+    buffers = dict(model.named_buffers())
+    assert lo is buffers["action_decoder.act_min"] and hi is buffers["action_decoder.act_max"]
+    assert not {"action_decoder.act_min", "action_decoder.act_max"} & set(model.state_dict())
+    np.testing.assert_array_equal(lo[:, 0].numpy(), np.float32(dec.act_min_bound[:-1]))
+    np.testing.assert_array_equal(hi[:, 0].numpy(), np.float32(dec.act_max_bound[:-1]))
+
+    dm, loss_cfg = cfg["datamodule"], cfg["loss"]
+    tf = make_batch_transform(dm["observation_space"], dm["proprioception_dims"], dm["transforms"])
+    step = make_train_step(model, make_optimizer(model.parameters(), cfg["model"]["optimizer"]), tf,
+                           loss_cfg["clip_auxiliary_loss_beta"], aux_betas_from_loss_cfg(loss_cfg),
+                           device="cpu")
+    rng = np.random.default_rng(5)
+    step(torch_raw(make_raw_batch(rng, cfg)), torch.Generator().manual_seed(0), 0.01)
+    made, real = [], torch.tensor
+
+    def watched(*args, **kwargs):
+        if kwargs.get("device") is not None:
+            made.append(kwargs["device"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", watched)
+    step(torch_raw(make_raw_batch(rng, cfg)), torch.Generator().manual_seed(1), 0.01)
+    assert made == []
+
+
 def test_import_leaves_jax_out():
     code = ("import sys; sys.path.insert(0, {repo!r}); import hulc2_torch, hulc2_torch.training, "
             "hulc2_torch.evaluation.evaluate_policy, hulc2_torch.agents.hulc2_agent, "
             "hulc2_torch.envs.render_torch, hulc2_torch.tools.profile_eval, "
+            "hulc2_torch.tools.make_expert_dataset, hulc2_torch.evaluation.loading, "
+            "hulc2_torch.train.trainer, hulc2_torch.data.datamodule, "
             "chip_smoke; bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('hulc2_tpu')); print(bad); sys.exit(1 if bad else 0)").format(repo=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
