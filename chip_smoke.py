@@ -51,7 +51,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
 14. (h) ``evaluate_policy --train-dir`` on that run, 8 chains: the loaded
    parameters equal the checkpoint's, results.json written, shift_normalize
    launched exactly twice per dispatch;
-15. the kernels line, the card line, and the final JSON line.
+15. (i) the affordance detector (``rn18_tokens_pixel``) at full width in fp32,
+   card against CPU, same weights: 8 frames of 96x96 resized on the device to
+   224 and the token ids of 8 validation sentences; logits, depth mu and
+   sigma within 1e-3 of the largest logit's magnitude (at least 1e-3), and
+   equal argmax pixels wherever the CPU's top two logits are further apart
+   than twice that;
+16. (j) label mining: ``python -m hulc2_torch.affordance.dataset_creation``
+   on (e)'s dataset must label frames in both splits;
+17. (k) ``python -m hulc2_torch.affordance.train_affordance`` on those labels
+   at batch 32, ``AFF_STEPS`` steps with a validation and a checkpoint per
+   epoch: losses and val metrics finite, the decoder's and the tower's
+   parameters moved, the encoder's bit for bit as initialised, config.json
+   holding ``depth_norm``, the last step's checkpoint written;
+18. (l) the hierarchical eval: ``evaluate_policy --train-dir`` (g)'s run
+   ``--aff-train-dir`` (k)'s run, 8 chains, counts reset just before and
+   read just after: the loaded detector's parameters equal the checkpoint's,
+   results.json written, one affordance prediction per subtask start,
+   approaches taken, shift_normalize launched exactly twice per dispatch;
+19. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -82,6 +100,14 @@ DATA_EPISODES, DATA_TASKS, DATA_VAL_TASKS = 3, 12, 6
 LOADER_BATCHES = 3
 DISK_STEPS, DISK_VAL = 20, 2
 DISK_ENVS, DISK_COHORTS, DISK_CHAINS = 8, 2, 8
+# the affordance phases: labels mined from the disk path's dataset, a
+# detector trained on them for AFF_STEPS steps, then the hierarchical eval of
+# the disk run with that detector
+AFF_DATA = BUILD / "chip_smoke_aff_data"
+AFF_RUN = BUILD / "chip_smoke_aff"
+HIER_DIR = BUILD / "chip_smoke_hier"
+AFF_STEPS = 20
+AFF_FRAMES = 8
 
 
 def fail(msg: str) -> None:
@@ -657,6 +683,177 @@ def phase_disk_eval(dev: torch.device, card: str, trained) -> dict:
     return launches
 
 
+def phase_detector(dev: torch.device) -> None:
+    """(i) The full-width detector in fp32 on the card against the CPU, same
+    weights, 8 frames of 96x96 at 224 and 8 validation sentences."""
+    import numpy as np
+
+    from hulc2_torch.affordance.train_affordance import build_detector
+    from hulc2_torch.configs.affordance import affordance_config
+    from hulc2_torch.ops.preprocess import resize
+    from hulc2_torch.tools.annotations import VALIDATION_BANK
+    from hulc2_torch.utils.clip_tokenizer import tokenize
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    cfg = affordance_config()
+    frames = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 256, (AFF_FRAMES, 96, 96, 3), dtype=np.uint8))
+    toks = torch.from_numpy(tokenize(list(VALIDATION_BANK.values())[:AFF_FRAMES]))
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        model = build_detector(cfg["aff_detection"], seed=22).to(d).eval()
+        with torch.no_grad():
+            imgs = resize(frames.to(d).float() / 255.0, 224, 224)
+            o = model(imgs, toks.to(d))
+            px, _, _ = model.predict_from_output(o, torch.zeros((AFF_FRAMES, 1), device=d), None)
+        out[d.type] = {"imgs": imgs.cpu(), "logits": o.aff_logits.cpu(), "mu": o.depth_pred[0].cpu(),
+                       "sigma": o.depth_pred[1].cpu(), "px": px.cpu()}
+    cpu, card = out["cpu"], out["cuda"]
+    resize_err = (cpu["imgs"] - card["imgs"]).abs().max().item()
+    tol = 1e-3 * max(1.0, cpu["logits"].abs().max().item())
+    errs = {k: (cpu[k] - card[k]).abs().max().item() for k in ("logits", "mu", "sigma")}
+    top2 = cpu["logits"].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = (cpu["px"] == card["px"]).all(dim=-1)
+    print(f"[detector] rn18_tokens_pixel fp32, {AFF_FRAMES} frames 96->224: resize max abs err "
+          f"{resize_err:.3g} (tol 1e-5); " + ", ".join(f"{k} max abs err {v:.3g}" for k, v in
+                                                        errs.items())
+          + f" (tol {tol:.3g}); pixels equal {int(same.sum())}/{AFF_FRAMES}, "
+          f"{int(clear.sum())} with a top-two margin over {2 * tol:.3g}", flush=True)
+    if resize_err > 1e-5 or max(errs.values()) > tol:
+        fail(f"the detector on the card disagrees with the CPU: resize {resize_err}, {errs}")
+    if not bool(same[clear].all()):
+        fail("the detector's argmax pixel differs where the logits' margin is clear")
+
+
+def phase_mining() -> dict:
+    """(j) Labels mined from (e)'s dataset; returns the labels per split."""
+    from hulc2_torch.affordance import dataset_creation
+
+    shutil.rmtree(AFF_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    info = dataset_creation.main([str(DATA_DIR), "--out-dir", str(AFF_DATA),
+                                  "--holdout-paraphrases", "4"])
+    seconds = time.perf_counter() - t0
+    labels = {split: sum(len(c["static_cam"]) for c in info[split].values())
+              for split in ("training", "validation")}
+    print(f"[mining] {labels['training']} training and {labels['validation']} validation labels "
+          f"mined in {seconds:.1f} s; depth norm {info['norm_values']['depth']['static_cam']}",
+          flush=True)
+    if not all(labels.values()):
+        fail(f"label mining found no labels in a split: {labels}")
+    return labels
+
+
+def phase_aff_train(dev: torch.device, card: str, labels: dict):
+    """(k) The detector trained on the mined labels at batch 32; returns the
+    trained model."""
+    from hulc2_torch.affordance import train_affordance
+    from hulc2_torch.configs.affordance import affordance_config
+
+    cfg = affordance_config()
+    per_epoch = labels["training"] // cfg["batch_size"]
+    if per_epoch < 1:
+        fail(f"{labels['training']} training labels make no batch of {cfg['batch_size']}")
+    epochs = -(-AFF_STEPS // per_epoch)
+    shutil.rmtree(AFF_RUN, ignore_errors=True)
+    result = train_affordance.main(["--run-dir", str(AFF_RUN), "--device", "cuda", "--max-epochs",
+                                    str(epochs), "--max-steps", str(AFF_STEPS),
+                                    "aff_detection=rn18_tokens_pixel",
+                                    f"aff_detection.dataset.data_dir={AFF_DATA}"])
+    torch.cuda.synchronize(dev)
+    if result.step != AFF_STEPS or len(result.history) != AFF_STEPS or len(result.val_history) != epochs:
+        fail(f"{result.step} steps, {len(result.history)} train and {len(result.val_history)} val "
+             f"lines, expected {AFF_STEPS} steps and {epochs} validations")
+    bad = sorted({k for line in result.history + result.val_history for k, v in line.items()
+                  if not math.isfinite(v)})
+    if bad or "val/px_dist_err" not in result.val_history[-1]:
+        fail(f"non-finite or missing metrics: {bad}")
+    run_cfg = json.loads((AFF_RUN / "config.json").read_text())
+    if set(run_cfg.get("depth_norm", {})) != {"mean", "std"}:
+        fail("config.json holds no depth_norm")
+    if not (AFF_RUN / "saved_models" / f"{AFF_STEPS}.pt").is_file():
+        fail("no checkpoint of the last step")
+    fresh = train_affordance.build_detector(cfg["aff_detection"], cfg["seed"]).state_dict()
+    trained = {k: v.cpu() for k, v in result.model.state_dict().items()}
+    encoder = [k for k in fresh if k.startswith("aff_stream.encoder.")]
+    if not encoder or not all(torch.equal(fresh[k], trained[k]) for k in encoder):
+        fail("the frozen encoder's parameters or statistics changed")
+    trainable = [n for n, p in result.model.named_parameters() if p.requires_grad]
+    moved = [n for n in trainable if not torch.equal(fresh[n], trained[n])]
+    if len(moved) < 0.9 * len(trainable) or not any(n.startswith("lang_tower.") for n in moved) \
+            or not any(n.startswith("aff_stream.decoder.") for n in moved):
+        fail(f"only {len(moved)} of {len(trainable)} trainable tensors moved")
+    steady = [line["step_ms"] for line in result.history[WARM_STEPS:]]
+    val = result.val_history[-1]
+    print(f"[aff_train] {AFF_STEPS} steps at batch {cfg['batch_size']} over {epochs} epochs of "
+          f"{per_epoch}: losses " + ", ".join(f"{line['total_loss']:.4f}" for line in result.history),
+          flush=True)
+    print(f"[aff_train] val: " + ", ".join(f"{k[4:]} {v:.4f}" for k, v in val.items()
+                                           if k.startswith("val/")), flush=True)
+    print(f"[aff_train] {len(moved)}/{len(trainable)} trainable tensors moved, {len(encoder)} encoder "
+          f"tensors bit-equal; step time {statistics.median(steady):.2f} ms (median of steps "
+          f"{WARM_STEPS}..{AFF_STEPS - 1}, spread {min(steady):.1f}-{max(steady):.1f} ms, host "
+          f"clock per step incl. the batch's copy and a fetch of its metrics; step 0 "
+          f"{result.history[0]['step_ms']:.1f} ms); on {card}", flush=True)
+    return result.model
+
+
+def phase_hier_eval(dev: torch.device, card: str, trained) -> dict:
+    """(l) The hierarchical eval of the disk run with (k)'s detector; returns
+    the launch counts of its run."""
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy
+    from hulc2_torch.evaluation.loading import load_affordance
+
+    pred = load_affordance(AFF_RUN, device=dev)
+    saved = torch.load(AFF_RUN / "saved_models" / f"{AFF_STEPS}.pt", map_location="cpu",
+                       weights_only=True)["model"]
+    loaded = {k: v.cpu() for k, v in pred.model.state_dict().items()}
+    mine = {k: v.cpu() for k, v in trained.state_dict().items()}
+    if not all(torch.equal(loaded[k], saved[k]) and torch.equal(loaded[k], mine[k]) for k in saved):
+        fail("the evaluation's detector differs from the checkpoint")
+    del pred
+    shutil.rmtree(HIER_DIR, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = evaluate_policy.main([
+        "--train-dir", str(DISK_RUN), "--aff-train-dir", str(AFF_RUN), "--fake-env",
+        "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS),
+        "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN), "--log-dir",
+        str(HIER_DIR), "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if not (HIER_DIR / "results.json").is_file():
+        fail("the hierarchical evaluation wrote no results.json")
+    diag = json.loads((HIER_DIR / "eval_diagnostics.json").read_text())
+    h, records = diag["hierarchical"], diag["subtask_records"]
+    if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or len({r["chain"] for r in records}) != DISK_CHAINS:
+        fail(f"unexpected results: {merged['latest']}")
+    if h["aff_predictions"] != len(records) or h["approaches"] < 1:
+        fail(f"{h} for {len(records)} subtask starts")
+    if h["approach_steps"] != sum(r["approach_steps"] for r in records):
+        fail("the approach steps of the records do not add up")
+    if launches["shift_normalize"] != 2 * diag["dispatches"]:
+        fail(f"shift_normalize launched {launches['shift_normalize']} times in "
+             f"{diag['dispatches']} dispatches")
+    rate = diag["total_env_steps"] / diag["wall_clock_s"]
+    flush_ms = 1e3 * diag["timings_s"]["aff_flush_s"] / h["aff_predictions"]
+    print(f"[hier_eval] step {2 * DISK_STEPS} of {DISK_RUN.name} with step {AFF_STEPS} of "
+          f"{AFF_RUN.name} ({len(saved)} detector tensors equal the checkpoint's): {DISK_CHAINS} "
+          f"chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts, avg_seq_len "
+          f"{merged['latest']['avg_seq_len']:.3f}; {h['aff_predictions']} affordance predictions, "
+          f"{h['approaches']} approaches, {h['approach_steps']} approach steps; "
+          f"{diag['total_env_steps']} env steps in {diag['wall_clock_s']:.2f} s = {rate:.1f} "
+          f"env-steps/s, {diag['dispatches']} dispatches; aff_flush_s {flush_ms:.2f} ms per "
+          f"prediction; whole entry point {wall_s:.1f} s; launches {launches}; on {card}", flush=True)
+    print(f"[hier_eval] host time, summed over cohorts: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in diag["timings_s"].items()), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -685,6 +882,10 @@ def main() -> int:
     trained, disk_launches = phase_disk_train(dev, card)
     val_err = phase_val_kernel(dev, host_dm)
     disk_eval_launches = phase_disk_eval(dev, card, trained)
+    phase_detector(dev)
+    labels = phase_mining()
+    detector = phase_aff_train(dev, card, labels)
+    hier_launches = phase_hier_eval(dev, card, detector)
 
     entry = {
         "name": "shift_normalize",
@@ -692,7 +893,7 @@ def main() -> int:
         "source": "hulc2_torch/csrc/shift_normalize.cu",
         "replaces": "hulc2_tpu/ops/pallas_shift.py:52",
         "launches": sum(n["shift_normalize"] for n in (launches, eval_launches, disk_launches,
-                                                        disk_eval_launches)),
+                                                        disk_eval_launches, hier_launches)),
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
@@ -702,7 +903,8 @@ def main() -> int:
         "launches_by_path": {"train": launches["shift_normalize"],
                              "eval": eval_launches["shift_normalize"],
                              "disk_train": disk_launches["shift_normalize"],
-                             "disk_eval": disk_eval_launches["shift_normalize"]},
+                             "disk_eval": disk_eval_launches["shift_normalize"],
+                             "hier_eval": hier_launches["shift_normalize"]},
         "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "

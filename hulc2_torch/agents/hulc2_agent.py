@@ -1,7 +1,9 @@
 """The rollout agent: a batched policy carry and one fused policy call per env step.
 
-Counterpart of ``hulc2_tpu/agents/hulc2_agent.py:39-212`` without the
-affordance approach, which belongs to the hierarchical mode. The agent holds
+Counterpart of ``hulc2_tpu/agents/hulc2_agent.py:39-212``. The hierarchical
+mode's affordance approach runs in the batched evaluator
+(``evaluation/batched_eval.py``); the agent's single-env approach at
+``reset(caption)`` is not ported. The agent holds
 no model state in Python: the policy's state of its ``n_envs`` envs is a
 device-resident ``PolicyCarry``; ``reset_env_slot`` restarts one env's slice
 of it. Each ``step_async`` copies the observations (K frames, or only K x 39

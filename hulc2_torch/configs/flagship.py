@@ -180,7 +180,12 @@ FLAGSHIP: Dict[str, Any] = {
 def flagship_config(overrides: Sequence[str] = ()) -> Dict[str, Any]:
     """A fresh copy of ``FLAGSHIP`` with dotted ``key=value`` overrides applied
     (values parsed as JSON where they parse), e.g. ``model.plan_proposal.hidden_size=64``."""
-    cfg = copy.deepcopy(FLAGSHIP)
+    return apply_overrides(copy.deepcopy(FLAGSHIP), overrides)
+
+
+def apply_overrides(cfg: Dict[str, Any], overrides: Sequence[str]) -> Dict[str, Any]:
+    """``cfg`` with dotted ``key=value`` overrides applied in place; a key the
+    config does not have raises."""
     for ov in overrides:
         key, sep, raw = ov.partition("=")
         if not sep:

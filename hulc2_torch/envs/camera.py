@@ -1,4 +1,4 @@
-"""Pinhole camera model: intrinsics and pose of the fake env's cameras.
+"""Pinhole camera model: project / deproject between pixels and world points.
 
 Role of calvin_env's camera objects (consumed at reference:
 hulc2/agents/lmp_agent.py:174-194 ``cameras[0].deproject`` and the label
@@ -10,12 +10,13 @@ Conventions: intrinsics K (3x3); ``T_world_cam`` (4x4) maps camera-frame
 points into world frame; pixels are (u, v) = (col, row); depth is the +z
 distance along the camera axis.
 
-The port's copy of the part of ``hulc2_tpu/envs/camera.py`` that the renderers
-use; projection and deprojection belong to the hierarchical mode, not ported.
+The port's copy of ``hulc2_tpu/envs/camera.py`` without the OpenGL-matrix
+constructor (calvin_env's cameras, not ported).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict
 
 import numpy as np
 
@@ -34,6 +35,11 @@ class PinholeCamera:
         T = np.eye(4) if T_world_cam is None else np.asarray(T_world_cam, np.float64)
         return cls(width, height, K, T, name)
 
+    def to_params(self) -> Dict:
+        """Keyword arguments that rebuild the camera."""
+        return {"width": self.width, "height": self.height, "K": self.K,
+                "T_world_cam": self.T_world_cam, "name": self.name}
+
     @property
     def T_cam_world(self) -> np.ndarray:
         R = self.T_world_cam[:3, :3]
@@ -42,3 +48,26 @@ class PinholeCamera:
         inv[:3, :3] = R.T
         inv[:3, 3] = -R.T @ t
         return inv
+
+    def project(self, point_world) -> np.ndarray:
+        """World point (3,) or homogeneous (4,) -> pixel (u, v)."""
+        p = np.asarray(point_world, np.float64)
+        if p.shape[-1] == 3:
+            p = np.append(p, 1.0)
+        pc = self.T_cam_world @ p
+        uvw = self.K @ pc[:3]
+        return np.array([uvw[0] / uvw[2], uvw[1] / uvw[2]])
+
+    def deproject(self, pixel, depth_map: np.ndarray, homogeneous: bool = False) -> np.ndarray:
+        """Pixel (u, v) + depth map (H, W) -> world point (3,). The depth is
+        looked up at the integer pixel; the ray uses the exact coordinates."""
+        ui = int(np.clip(int(pixel[0]), 0, self.width - 1))
+        vi = int(np.clip(int(pixel[1]), 0, self.height - 1))
+        return self.deproject_single_depth(pixel, float(depth_map[vi, ui]), homogeneous)
+
+    def deproject_single_depth(self, pixel, depth: float, homogeneous: bool = False) -> np.ndarray:
+        u, v = float(pixel[0]), float(pixel[1])
+        fx, fy = self.K[0, 0], self.K[1, 1]
+        cx, cy = self.K[0, 2], self.K[1, 2]
+        pw = self.T_world_cam @ np.array([(u - cx) * depth / fx, (v - cy) * depth / fy, depth, 1.0])
+        return pw if homogeneous else pw[:3]

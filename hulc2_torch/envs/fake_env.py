@@ -2,9 +2,8 @@
 
 The port's copy of ``hulc2_tpu/envs/fake_env.py`` (numpy only, no torch), held
 equal to it by ``tests/test_torch_port_eval_host.py``. Left out, since nothing
-of the port uses them yet: ``perform(task)`` (dataset tooling), absolute
-(pos, orn, gripper) actions and the camera parameters (the hierarchical mode),
-the emulated step delay and the non-interactive mode (benchmark tooling).
+of the port uses them yet: ``perform(task)`` (dataset tooling), the emulated
+step delay and the non-interactive mode (benchmark tooling).
 
 Role: the integration-test and learning-loop backend (SURVEY.md §4's
 "fake/synthetic backend" gap, extended per VERDICT r3 Missing #1 from an
@@ -88,6 +87,10 @@ class FakeCalvinEnv:
                                          cx=hw / 2, cy=hw / 2, T_world_cam=T,
                                          name="gripper")
 
+    def get_camera_params(self) -> Dict:
+        """The static camera's ``PinholeCamera`` keyword arguments."""
+        return self.cameras[0].to_params()
+
     # ---- calvin_env-compatible surface --------------------------------- #
     def reset(self, robot_obs=None, scene_obs=None):
         if robot_obs is not None:
@@ -99,13 +102,20 @@ class FakeCalvinEnv:
         return self.get_obs()
 
     def step(self, action):
-        """A flat 7-d relative action [dpos, dorn, gripper] (the calvin_env
-        relative format): integrate the EE, then the scene's response."""
+        """Integrate the EE, then the scene's response. Both calvin_env action
+        formats: a flat 7-d relative [dpos, dorn, gripper], or the absolute
+        (pos, orn, gripper) tuple of the approach controller."""
         prev = self.robot_obs.copy()
-        a = np.asarray(action, np.float64).reshape(-1)
-        self.robot_obs[:3] += np.clip(a[:3], -1, 1) * L.POS_STEP
-        self.robot_obs[3:6] += np.clip(a[3:6], -1, 1) * L.ORN_STEP
-        self.robot_obs[14] = 1.0 if a[-1] > 0 else -1.0
+        if isinstance(action, (tuple, list)) and len(action) == 3 and np.ndim(action[0]) >= 1:
+            pos, orn, grip = action
+            self.robot_obs[:3] = np.asarray(pos, np.float64)[:3]
+            self.robot_obs[3:6] = np.asarray(orn, np.float64)[:3]
+            self.robot_obs[14] = 1.0 if float(np.ravel(grip)[0]) > 0 else -1.0
+        else:
+            a = np.asarray(action, np.float64).reshape(-1)
+            self.robot_obs[:3] += np.clip(a[:3], -1, 1) * L.POS_STEP
+            self.robot_obs[3:6] += np.clip(a[3:6], -1, 1) * L.ORN_STEP
+            self.robot_obs[14] = 1.0 if a[-1] > 0 else -1.0
         self._simulate(prev)
         return self.get_obs(), 0.0, False, self.get_info()
 

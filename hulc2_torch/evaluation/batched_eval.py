@@ -1,16 +1,26 @@
 """Batched, pipelined CALVIN evaluation: K lockstep envs, one policy call per step.
 
 The port's copy of ``PipelinedEvaluator`` from
-``hulc2_tpu/evaluation/batched_eval.py:228``, without the hierarchical
-(affordance) mode. K env instances run in lockstep (``envs.EnvFarm``); the
-policy step of all K is one call (the carry is batched and resettable per
-env), and the task oracle is checked per env on the host. The K envs are
+``hulc2_tpu/evaluation/batched_eval.py:228``. K env instances run in
+lockstep (``envs.EnvFarm``); the policy step of all K is one call (the carry
+is batched and resettable per env), and the task oracle is checked per env
+on the host. The K envs are
 split into C cohorts, each with its own agent: while one cohort's policy step
 runs on the device, the other cohorts' host simulators step, so the wall
 time per K env steps approaches max(host sim time, C x dispatch time).
 
 Each env works through its own queue of (initial_state, chain) jobs; when
 env i finishes (or fails) its chain, it resets to its next job at once.
+
+Given an affordance predictor, the evaluator runs the hierarchical (HULC++)
+mode: at each subtask start the env's static frame and the task's
+instruction are queued; the queries of one round are answered by one batched
+prediction before the next dispatch; the predicted pixel and depth are
+deprojected to a world point, and when that pixel is more than
+``MOVE_THRESHOLD_PX`` from the TCP's, a staged PD ``ApproachController``
+drives the arm to the point (raised by ``APPROACH_OFFSET``). Its absolute
+actions replace the policy's for that env and do not use the subtask's
+step budget; when it is done, the env's policy carry restarts.
 
 Two faults of the original are repaired here: ``evaluate`` resets the list
 of finished chains with the rest of its per-run state, and the partial
@@ -28,12 +38,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hulc2_torch.agents.approach import ApproachController
+from hulc2_torch.envs.camera import PinholeCamera
+from hulc2_torch.envs.render import render, scene_boxes
 from hulc2_torch.envs.task_oracle import SceneObsTaskOracle
 from hulc2_torch.evaluation.harness import count_success
 from hulc2_torch.evaluation.initial_states import get_env_state_for_initial_condition
 from hulc2_torch.evaluation.sequences import get_sequences
 
 logger = logging.getLogger(__name__)
+
+MOVE_THRESHOLD_PX = 15.0  # approach only when the target pixel is farther from the TCP's
+APPROACH_OFFSET = np.array([0.0, 0.0, 0.1])  # the approach ends this far above the target
 
 
 class _AsyncFetch:
@@ -67,7 +83,8 @@ class _AsyncFetch:
 class _EnvJob:
     """Per-env chain cursor."""
 
-    __slots__ = ("chain", "subtask_idx", "steps_left", "start_info", "done", "result", "job_idx")
+    __slots__ = ("chain", "subtask_idx", "steps_left", "start_info", "done", "result",
+                 "job_idx", "approach", "approach_steps")
 
     def __init__(self, job_idx: int, chain: Sequence[str]):
         self.job_idx = job_idx
@@ -77,6 +94,10 @@ class _EnvJob:
         self.start_info = None
         self.done = False
         self.result = 0
+        # hierarchical mode: the subtask's PD approach in flight (the policy's
+        # actions are ignored until it is done) and its steps so far
+        self.approach: Optional[ApproachController] = None
+        self.approach_steps = 0
 
 
 class _Cohort:
@@ -92,6 +113,9 @@ class _Cohort:
         self.jobs: List[Optional[_EnvJob]] = [None] * self.k
         self.goals = np.zeros((self.k, evaluator.goal_dim), evaluator.goal_dtype)
         self.pending: Optional[_AsyncFetch] = None  # the in-flight step's actions
+        # the approach phase's actions of the in-flight step, which replace
+        # the policy's in settle()
+        self._pd_actions: List[Optional[tuple]] = [None] * self.k
         # per-env latest observation, reused for the next dispatch so each
         # env renders exactly once per step
         self.obs: List[Optional[Dict]] = [None] * self.k
@@ -117,14 +141,35 @@ class _Cohort:
 
     def begin_subtask(self, i: int, job: _EnvJob):
         job.steps_left = self.ev.ep_len
+        job.approach_steps = 0
         job.start_info = self.farm.envs[i].get_info()
         self.agent.reset_env_slot(i)
+        self.ev.queue_approach(self.farm.envs[i], self.obs[i], job, job.chain[job.subtask_idx])
 
     def dispatch(self):
-        """Submit the next policy step for this cohort without waiting."""
+        """Submit the next policy step for this cohort without waiting. The
+        queued affordance queries are answered first; an env in its approach
+        phase gets its PD action from the same observation, and an approach
+        that is done restarts the env's carry before the step. The step covers
+        all K envs; the approaching envs' policy actions are dropped in
+        settle()."""
         if any(o is None for o in self.obs):
             self.obs = [o if o is not None else e.get_obs()
                         for o, e in zip(self.obs, self.farm.envs)]
+        t0 = time.perf_counter()
+        self.ev.flush_approaches()
+        self.ev.timings["aff_flush_s"] += time.perf_counter() - t0
+        self._pd_actions = [None] * self.k
+        for i, job in enumerate(self.jobs):
+            if job is None or job.approach is None:
+                continue
+            robot = np.asarray(self.obs[i]["robot_obs"], np.float64)
+            a = job.approach.action(robot[:3], robot[3:6])
+            if a is None:
+                job.approach = None
+                self.agent.reset_env_slot(i)
+            else:
+                self._pd_actions[i] = a
         t0 = time.perf_counter()
         stacked = type(self.farm).stack_obs(self.obs)
         self.pending = _AsyncFetch(self.agent.step_async(stacked, {"lang": self.goals}))
@@ -140,8 +185,14 @@ class _Cohort:
         self.pending = None
         if actions.ndim == 1:
             actions = actions[None]
+        acts: List = list(actions)
+        for i, pd in enumerate(self._pd_actions):
+            if pd is not None and self.jobs[i] is not None:
+                acts[i] = pd
+                self.ev.n_approach_steps += 1
+                self.jobs[i].approach_steps += 1
         t0 = time.perf_counter()
-        obs_list, infos = self.farm.step_all(list(actions))
+        obs_list, infos = self.farm.step_all(acts)
         self.ev.timings["sim_step_s"] += time.perf_counter() - t0
         self.obs = list(obs_list)
         oracle = self.ev.oracle
@@ -149,7 +200,9 @@ class _Cohort:
             job = self.jobs[i]
             if job is None or job.done:
                 continue
-            job.steps_left -= 1
+            if self._pd_actions[i] is None:
+                # approach steps do not use the policy's step budget
+                job.steps_left -= 1
             subtask = job.chain[job.subtask_idx]
             hit = subtask in oracle.get_task_info_for_set(job.start_info, infos[i], [subtask])
             advance_chain = False
@@ -177,7 +230,9 @@ class PipelinedEvaluator:
     ``cohorts`` is a list of (farm, agent) pairs; the agents should share one
     fused step function (``fused_step=`` of ``Hulc2Agent``).
     ``lang_embeddings`` maps each task to its goal: BPE token ids for a policy
-    with the text tower, or a sentence embedding.
+    with the text tower, or a sentence embedding. ``affordance`` (an
+    ``AffordancePredictor``) turns on the hierarchical mode, with
+    ``aff_lang_embeddings`` mapping each task to the detector's token ids.
     """
 
     def __init__(
@@ -186,6 +241,8 @@ class PipelinedEvaluator:
         lang_embeddings: Dict[str, np.ndarray],
         ep_len: int = 360,
         oracle: Optional[SceneObsTaskOracle] = None,
+        affordance=None,
+        aff_lang_embeddings: Optional[Dict[str, np.ndarray]] = None,
     ):
         self.ep_len = ep_len
         self.oracle = oracle or SceneObsTaskOracle()
@@ -193,6 +250,13 @@ class PipelinedEvaluator:
         sample_goal = np.asarray(next(iter(lang_embeddings.values())))
         self.goal_dim = int(sample_goal.shape[-1])
         self.goal_dtype = sample_goal.dtype
+        self.affordance = affordance
+        self.aff_lang = aff_lang_embeddings or {}
+        self.n_aff_predictions = 0
+        self.n_approaches = 0
+        self.n_approach_steps = 0
+        self._aff_pending: List[tuple] = []
+        self._cam_cache: Dict[int, PinholeCamera] = {}
         self.cohorts = [_Cohort(farm, agent, self) for farm, agent in cohorts]
         # shared job queue state (set per evaluate() call)
         self.sequences: Sequence = []
@@ -205,7 +269,7 @@ class PipelinedEvaluator:
         # throughput per window of completed chains
         self.subtask_records: List[dict] = []
         self.timings: Dict[str, float] = {
-            "fetch_wait_s": 0.0, "sim_step_s": 0.0, "dispatch_submit_s": 0.0,
+            "fetch_wait_s": 0.0, "sim_step_s": 0.0, "aff_flush_s": 0.0, "dispatch_submit_s": 0.0,
         }
         self.n_dispatches = 0
         self.throughput_curve: List[dict] = []
@@ -252,13 +316,73 @@ class PipelinedEvaluator:
             "task": subtask,
             "success": bool(success),
             "policy_steps": int(self.ep_len - job.steps_left),
-            # the JAX package's record format; without the hierarchical mode
-            # no step is an approach step
-            "approach_steps": 0,
+            "approach_steps": int(job.approach_steps),
         })
 
     def goal_for(self, subtask: str) -> np.ndarray:
         return np.asarray(self.lang[subtask], self.goal_dtype)
+
+    # ---- hierarchical (affordance) mode -------------------------------- #
+    def _camera(self, env) -> PinholeCamera:
+        """The env's static camera, cached per env."""
+        cam = self._cam_cache.get(id(env))
+        if cam is None:
+            cam = self._cam_cache[id(env)] = PinholeCamera(**env.get_camera_params())
+        return cam
+
+    def queue_approach(self, env, obs, job: _EnvJob, subtask: str) -> None:
+        """Queue an affordance query for ``job``'s new subtask; answered by
+        ``flush_approaches`` before the next dispatch."""
+        if self.affordance is None:
+            return
+        self._aff_pending.append((env, self._ensure_frames(env, obs), job, subtask))
+
+    def _ensure_frames(self, env, obs: Dict) -> Dict:
+        """``obs`` with its static RGB and depth frames. A state-only env (the
+        device-render path) has none, so they are rendered here on the host,
+        at subtask starts only."""
+        if obs.get("rgb_obs"):
+            return obs
+        boxes, n_static = scene_boxes(obs["scene_obs"], obs["robot_obs"])
+        rgb, depth = render(self._camera(env), boxes, n_static=n_static, cache_key="static")
+        return {**obs, "rgb_obs": {"rgb_static": rgb}, "depth_obs": {"depth_static": depth}}
+
+    def flush_approaches(self) -> None:
+        """Answer every queued affordance query with one batched prediction."""
+        if not self._aff_pending:
+            return
+        reqs, self._aff_pending = self._aff_pending, []
+        preds = self.affordance.predict_batch([obs["rgb_obs"]["rgb_static"] for _, obs, _, _ in reqs],
+                                              [self.aff_lang[t] for _, _, _, t in reqs])
+        self.n_aff_predictions += len(reqs)
+        for (env, obs, job, _), pred in zip(reqs, preds):
+            job.approach = self._approach_from_pred(env, obs, pred)
+
+    def make_approach(self, env, obs, subtask: str) -> Optional[ApproachController]:
+        """One env's query, unbatched: predict, deproject, and the approach, or
+        None when no approach is needed."""
+        if self.affordance is None:
+            return None
+        obs = self._ensure_frames(env, obs)
+        pred = self.affordance.predict(obs["rgb_obs"]["rgb_static"], self.aff_lang[subtask])
+        self.n_aff_predictions += 1
+        return self._approach_from_pred(env, obs, pred)
+
+    def _approach_from_pred(self, env, obs, pred: Dict) -> Optional[ApproachController]:
+        """The approach to the predicted pixel's world point (the predicted
+        depth, else the frame's depth map), or None when the pixel is within
+        ``MOVE_THRESHOLD_PX`` of the TCP's."""
+        cam = self._camera(env)
+        if "depth" in pred:
+            target = cam.deproject_single_depth(pred["pixel"], pred["depth"])
+        else:
+            target = cam.deproject(pred["pixel"], obs["depth_obs"]["depth_static"])
+        tcp_pos = np.asarray(obs["robot_obs"][:3], np.float64)
+        tcp_px = cam.project(np.append(tcp_pos, 1.0))
+        if np.linalg.norm(np.asarray(pred["pixel"], np.float64) - tcp_px) <= MOVE_THRESHOLD_PX:
+            return None
+        self.n_approaches += 1
+        return ApproachController(tcp_pos, np.asarray(target) + APPROACH_OFFSET, gripper_action=1.0)
 
     # ---- main loop ----------------------------------------------------- #
     def evaluate(self, num_sequences: int = 1000, sequences=None, progress: bool = True) -> List[int]:

@@ -2,6 +2,7 @@
 
     python -m hulc2_torch.evaluation.evaluate_policy --train-dir RUN [--checkpoint STEP] \\
         --fake-env [--device-render] [--n-envs 32] [--cohorts 4] \\
+        [--aff-train-dir AFF_RUN [--aff-checkpoint STEP]] \\
         [--num-sequences 1000] [--ep-len 360] [--log-dir DIR] [--device cuda|cpu]
     python -m hulc2_torch.evaluation.evaluate_policy --synthetic --fake-env ... [key=value ...]
 
@@ -24,12 +25,21 @@ oracle. The agents' draws come from generators seeded from the config's
 ``seed``. Writes ``results.json``, ``eval_diagnostics.json`` and snapshots in
 ``partial_results.json`` to ``--log-dir``.
 
+``--aff-train-dir`` turns on the hierarchical (HULC++) mode with a detector
+trained by ``python -m hulc2_torch.affordance.train_affordance`` (its newest
+step, or ``--aff-checkpoint``): at every subtask start the detector predicts
+where to go from the static frame and the task's canonical sentence, and a
+PD approach drives the arm there before the policy takes over
+(``batched_eval``). The log then reports the affordance predictions,
+approaches and approach steps, also in the ``"hierarchical"`` block of
+``eval_diagnostics.json``.
+
 Runs on the card unless ``--device cpu`` is given, and refuses to run without
-one. Not ported yet: ``--all-checkpoints``, the real CALVIN env, the
-hierarchical mode, the process env farm and the paraphrase and single-step
-protocols. As in the JAX package, the fake-env agents normalize no
-proprioception with the dataset statistics (the flagship has no proprio
-encoder, so its actions do not depend on it).
+one. Not ported yet: ``--all-checkpoints``, the real CALVIN env, the process
+env farm and the paraphrase and single-step protocols. As in the JAX
+package, the fake-env agents normalize no proprioception with the dataset
+statistics (the flagship has no proprio encoder, so its actions do not
+depend on it).
 """
 from __future__ import annotations
 
@@ -75,6 +85,11 @@ def save_eval_diagnostics(ev, log_dir: Path, args, sequences) -> Dict:
         "dispatches": int(ev.n_dispatches),
         "timings_s": dict(ev.timings),
         "throughput_curve": ev.throughput_curve,
+        "hierarchical": {
+            "aff_predictions": ev.n_aff_predictions,
+            "approaches": ev.n_approaches,
+            "approach_steps": ev.n_approach_steps,
+        },
         "per_task": dict(sorted(per_task.items(), key=lambda kv: kv[1]["sr"])),
         "subtask_records": ev.subtask_records,
     }
@@ -89,19 +104,21 @@ def cohort_sizes(n_envs: int, cohorts: int) -> list:
 
 
 def _check_run_dir(p: argparse.ArgumentParser, run_dir: Path, step: Optional[int],
-                   overrides) -> None:
-    """Refuse, through the parser, a run dir the port cannot load."""
-    from hulc2_torch.core.checkpoint import CheckpointManager
+                   flag: str = "--train-dir", step_flag: str = "--checkpoint",
+                   section: str = "model") -> None:
+    """Refuse, through the parser, a run dir the port cannot load: one
+    without a config holding ``section`` or without checkpoints."""
+    from hulc2_torch.core.checkpoint import CheckpointManager, load_run_config
 
     steps = CheckpointManager(run_dir).all_steps()
     if not (run_dir / "config.json").is_file():
-        p.error(f"--train-dir {run_dir}: no config.json (not a training run of the port)")
+        p.error(f"{flag} {run_dir}: no config.json (not a training run of the port)")
+    if section not in load_run_config(run_dir):
+        p.error(f"{flag} {run_dir}: its config.json has no {section!r} section")
     if not steps:
-        p.error(f"--train-dir {run_dir}: no checkpoints under saved_models/")
+        p.error(f"{flag} {run_dir}: no checkpoints under saved_models/")
     if step is not None and step not in steps:
-        p.error(f"--checkpoint {step}: the run has steps {steps}")
-    if overrides:
-        p.error("config overrides apply to --synthetic only: a run's config is its own")
+        p.error(f"{step_flag} {step}: the run has steps {steps}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -126,6 +143,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--ep-len", type=int, default=harness.EP_LEN)
     p.add_argument("--log-dir", default=None,
                    help="output dir (default: <train-dir>/evaluation, or runs/torch_eval)")
+    p.add_argument("--aff-train-dir", default=None,
+                   help="an affordance run dir of the port: turns on the hierarchical mode")
+    p.add_argument("--aff-checkpoint", type=int, default=None,
+                   help="with --aff-train-dir: the affordance step to load (default: the newest)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("overrides", nargs="*",
                    help="dotted key=value config overrides (with --synthetic)")
@@ -136,7 +157,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if args.synthetic == (args.train_dir is not None):
         p.error("give exactly one policy source: --train-dir RUN or --synthetic")
     if args.train_dir is not None:
-        _check_run_dir(p, Path(args.train_dir), args.checkpoint, args.overrides)
+        _check_run_dir(p, Path(args.train_dir), args.checkpoint)
+        if args.overrides:
+            p.error("config overrides apply to --synthetic only: a run's config is its own")
+    if args.aff_train_dir is not None:
+        from hulc2_torch.affordance.train_affordance import unported
+        from hulc2_torch.core.checkpoint import load_run_config
+
+        _check_run_dir(p, Path(args.aff_train_dir), args.aff_checkpoint, "--aff-train-dir",
+                       "--aff-checkpoint", "aff_detection")
+        reason = unported(load_run_config(Path(args.aff_train_dir))["aff_detection"])
+        if reason:
+            p.error(f"--aff-train-dir {args.aff_train_dir}: {reason}")
+    elif args.aff_checkpoint is not None:
+        p.error("--aff-checkpoint needs --aff-train-dir")
     if not args.fake_env:
         p.error("--fake-env is required: the real CALVIN env is not ported")
 
@@ -148,7 +182,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from hulc2_torch.envs.calvin_wrapper import EnvFarm
     from hulc2_torch.envs.fake_env import FakeCalvinEnv
     from hulc2_torch.evaluation.batched_eval import PipelinedEvaluator
-    from hulc2_torch.evaluation.loading import load_policy
+    from hulc2_torch.evaluation.loading import load_affordance, load_policy
     from hulc2_torch.evaluation.tasks import TASK_NAMES
     from hulc2_torch.models.build import build_policy
     from hulc2_torch.tools.annotations import VALIDATION_BANK
@@ -173,8 +207,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     model = model.to(device).eval()
     log_dir.mkdir(parents=True, exist_ok=True)
     sequences = get_sequences(args.num_sequences)
-    # goals: BPE token ids of each task's canonical validation sentence
+    # goals: BPE token ids of each task's canonical validation sentence, for
+    # the policy's and the detector's text towers alike
     lang = {t: np.asarray(tokenize([VALIDATION_BANK[t]])[0]) for t in TASK_NAMES}
+    affordance = None
+    if args.aff_train_dir is not None:
+        affordance = load_affordance(args.aff_train_dir, args.aff_checkpoint, device,
+                                     seed=cfg["seed"],
+                                     lang_table={VALIDATION_BANK[t]: lang[t] for t in TASK_NAMES})
     # render at the preset's sizes, so no resize is needed
     env_hw = dict(static_hw=sizes["rgb_static"], gripper_hw=sizes["rgb_gripper"])
 
@@ -189,13 +229,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         shared_step = shared_step or agent._fused_step
         cohorts.append((farm, agent))
     # scored by the scene-obs oracle, the evaluator's default
-    ev = PipelinedEvaluator(cohorts, lang, ep_len=args.ep_len)
+    ev = PipelinedEvaluator(cohorts, lang, ep_len=args.ep_len, affordance=affordance,
+                            aff_lang_embeddings=lang)
     ev.partial_path = log_dir / "partial_results.json"
     results = ev.evaluate(sequences=sequences)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     merged = harness.print_and_save({results_key: results}, log_dir, sequences=sequences)
     diag = save_eval_diagnostics(ev, log_dir, args, sequences)
+    if affordance is not None:
+        logger.info("hierarchical mode: %d affordance predictions, %d approaches, "
+                    "%d approach steps", ev.n_aff_predictions, ev.n_approaches,
+                    ev.n_approach_steps)
     logger.info("evaluation: %d chains, %d env steps in %.1f s (%.1f env-steps/s), %d dispatches, "
                 "wall clock %.1f s", len(results), diag["total_env_steps"], diag["wall_clock_s"],
                 diag["total_env_steps"] / max(diag["wall_clock_s"], 1e-9), diag["dispatches"],

@@ -1,7 +1,9 @@
-"""A trained policy from a training run dir (``hulc2_tpu/evaluation/loading.py:96-112``).
+"""Trained models from run dirs (``hulc2_tpu/evaluation/loading.py:96-155``).
 
-The run's ``config.json`` is the model's spec; the newest (or a named) step
+A run's ``config.json`` is the model's spec; the newest (or a named) step
 under ``saved_models/`` gives its parameters (``core/checkpoint.py``).
+``load_policy`` reads a run of ``python -m hulc2_torch.training``,
+``load_affordance`` one of ``python -m hulc2_torch.affordance.train_affordance``.
 """
 from __future__ import annotations
 
@@ -29,3 +31,27 @@ def load_policy(run_dir, step: Optional[int] = None) -> Tuple[Hulc2, dict, int]:
     model.load_state_dict(restored["model"])
     logger.info("loaded step %d from %s", restored["step"], run_dir)
     return model, cfg, restored["step"]
+
+
+def load_affordance(run_dir, step: Optional[int] = None, device="cpu", seed: int = 0,
+                    lang_table=None):
+    """``AffordancePredictor`` on ``device`` from an affordance run dir: the
+    detector built from its config, the checkpoint's parameters and BatchNorm
+    statistics, and the labels' ``depth_norm``."""
+    import torch
+
+    from hulc2_torch.affordance.depth_heads import DepthNorm
+    from hulc2_torch.affordance.detector import AffordancePredictor
+    from hulc2_torch.affordance.train_affordance import build_detector, input_hw
+
+    run_dir = Path(run_dir)
+    cfg = load_run_config(run_dir)
+    model = build_detector(cfg["aff_detection"])
+    restored = CheckpointManager(run_dir).restore(step)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoints under {run_dir}/saved_models")
+    model.load_state_dict(restored["model"])
+    logger.info("loaded affordance step %d from %s", restored["step"], run_dir)
+    hw = input_hw(cfg["aff_detection"])
+    return AffordancePredictor(model.to(torch.device(device)), DepthNorm(**cfg["depth_norm"]),
+                               (hw, hw), seed=seed, lang_table=lang_table)

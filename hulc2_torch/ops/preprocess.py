@@ -89,6 +89,39 @@ def shift_from_offsets(offsets: torch.Tensor, imgs: torch.Tensor, pad: int) -> t
     return imgs[frame, rows[:, :, None], cols[:, None, :]]
 
 
+@functools.lru_cache(maxsize=32)
+def _resize_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """(in_size, out_size) fp32 weights of ``jax.image.resize``'s linear
+    kernel: sample points at half-pixel centres, the triangle kernel widened
+    by the downscale factor (antialiasing), each column renormalized over the
+    inputs it covers."""
+    inv_scale = torch.tensor(in_size / out_size, dtype=torch.float32)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs()
+    w = torch.clamp(1.0 - x / torch.clamp(inv_scale, min=1.0), min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def resize(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of NHWC float images with ``jax.image.resize``'s
+    semantics (``preprocess.py:118-124``), up or down; the input itself when
+    the size already matches. Each spatial dim is one matmul with its weight
+    matrix."""
+    n, h, w, c = imgs.shape
+    if (h, w) == (out_h, out_w):
+        return imgs
+    x = imgs.float()
+    if h != out_h:
+        x = torch.einsum("nhwc,hH->nHwc", x, _resize_weights(h, out_h, x.device))
+    if w != out_w:
+        x = torch.einsum("nhwc,wW->nhWc", x, _resize_weights(w, out_w, x.device))
+    return x
+
+
 def shift_normalize_plain(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, mean: Stat,
                           std: Stat, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """The plain PyTorch version of the kernel: clamped gather, then the fp32

@@ -13,6 +13,11 @@ are the reference's (``perceptual_encoder.rgb_static_encoder.conv_model.0``,
 - LayerNorm scale/bias -> weight/bias;
 - RNN w_ih/w_hh (in, H) -> weight_ih/weight_hh (H, in);
 - CLIP's separate q/k/v kernels -> one packed ``in_proj_weight`` (3C, C).
+
+``detector_flax_to_torch(variables, aff_cfg)`` does the same for the JAX
+``AffordanceDetector``'s {"params", "batch_stats"}: ``TorchBatchNorm`` and
+flax ``nn.BatchNorm`` scale/bias/mean/var -> weight/bias/running_mean/
+running_var, the tower through the CLIP mapping.
 """
 from __future__ import annotations
 
@@ -202,4 +207,57 @@ def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch
         **_prefixed("lang_task_head", lang_task_head(p["lang_task_head"])),
         "logit_scale": _f32(p["logit_scale"]).reshape(()),
     }
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def conv_kernel(p: Mapping) -> np.ndarray:
+    """A bare flax nn.Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw)."""
+    return _f32(p["kernel"]).transpose(3, 2, 0, 1)
+
+
+def batch_norm(p: Mapping, stats: Mapping) -> SD:
+    return {"weight": _f32(p["scale"]), "bias": _f32(p["bias"]),
+            "running_mean": _f32(stats["mean"]), "running_var": _f32(stats["var"])}
+
+
+def resnet18(p: Mapping, stats: Mapping) -> SD:
+    out = {"conv1.weight": conv_kernel(p["conv1"]), **_prefixed("bn1", batch_norm(p["bn1"], stats["bn1"]))}
+    for stage in range(1, 5):
+        for b in range(2):
+            name = f"layer{stage}_{b}"
+            blk, blk_stats = p[name], stats[name]
+            for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("ds_conv", "ds_bn")):
+                if conv in blk:
+                    out[f"{name}.{conv}.weight"] = conv_kernel(blk[conv])
+                    out.update(_prefixed(f"{name}.{bn}", batch_norm(blk[bn], blk_stats[bn])))
+    return out
+
+
+def lang_fusion_decoder(p: Mapping, stats: Mapping, n_blocks: int) -> SD:
+    out: SD = {}
+    for i in range(n_blocks):
+        blk, blk_stats = p[f"block{i}"], stats[f"block{i}"]
+        if "lang_proj" in blk:
+            out.update(_prefixed(f"blocks.{i}.lang_proj", linear(blk["lang_proj"])))
+        for c in ("conv1", "conv2"):
+            out[f"blocks.{i}.{c}.conv.weight"] = conv_kernel(blk[c]["conv"])
+            out.update(_prefixed(f"blocks.{i}.{c}.bn", batch_norm(blk[c]["bn"], blk_stats[c]["bn"])))
+    return out
+
+
+def detector_flax_to_torch(variables: Mapping[str, Any], aff_cfg: dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``AffordanceDetector``'s flax variables ({"params", "batch_stats"})
+    of the ``rn18_tokens_pixel`` family -> the port's ``state_dict``."""
+    p, stats = variables["params"], variables["batch_stats"]
+    stream, stream_stats = p["aff_stream"], stats["aff_stream"]
+    sd: SD = {
+        **_prefixed("lang_tower", clip_text(p["lang_tower"], aff_cfg["tower_layers"])),
+        **_prefixed("aff_stream.encoder", resnet18(stream["encoder"], stream_stats["encoder"])),
+        **_prefixed("aff_stream.decoder", lang_fusion_decoder(
+            stream["decoder"], stream_stats["decoder"], len(aff_cfg["decoder_channels"]))),
+        "aff_stream.seg_head.weight": conv_kernel(stream["seg_head"]),
+        "aff_stream.seg_head.bias": _f32(stream["seg_head"]["bias"]),
+    }
+    for head in ("fc1", "fc2", "fc3", "depth_mu", "depth_sigma"):
+        sd.update(_prefixed(f"depth_stream.{head}", linear(p["depth_stream"][head])))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
