@@ -20,8 +20,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    before and read just after: losses finite, parameters moved, and
    shift_normalize launched exactly twice per step;
 7. (a) the kernel at pad 0, the evaluation's val transform with the preset's
-   val mean and std, against its plain version on 4, 8 and 32 frames of 96x96
-   and 64x64 (4 and 8 are the evaluations' frames per camera and dispatch),
+   val mean and std, against its plain version on 1, 2, 4, 8 and 32 frames of
+   96x96 and 64x64 (1-8 are the evaluations' frames per camera and dispatch),
    fp32 and bf16, bit for bit, and its device time at the eval's 8 frames per
    camera;
 8. (b) the device renderer on the card against the same renderer on the CPU,
@@ -69,7 +69,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    read just after: the loaded detector's parameters equal the checkpoint's,
    results.json written, one affordance prediction per subtask start,
    approaches taken, shift_normalize launched exactly twice per dispatch;
-19. the kernels line, the card line, and the final JSON line.
+19. (m) the paraphrase protocol: (l) again with ``--paraphrase-eval``: the
+   policy's and the detector's goals are each task's held-out sentences;
+   results.json written, ``"paraphrase_eval": true`` in the diagnostics, one
+   prediction per subtask start, shift_normalize launched twice per dispatch;
+20. (n) ``evaluate_policy --all-checkpoints --device-render`` over the disk
+   run's two steps, 4 chains each: both in one results.json, "best" the one
+   with the higher avg_seq_len, twice per dispatch of each step;
+21. (o) ``--single-step --dataset-path`` the dataset of (e): as many jobs as
+   ``harness.dataset_singlestep_sequences`` finds in its validation split,
+   one subtask and one record each, twice per dispatch;
+22. (p) ``interactive.main`` on the disk run with two instructions on a
+   StringIO stdin, one from the offline keyword planner, up to 60 steps
+   each: one verdict line per instruction, twice per policy step;
+23. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -108,6 +121,16 @@ AFF_RUN = BUILD / "chip_smoke_aff"
 HIER_DIR = BUILD / "chip_smoke_hier"
 AFF_STEPS = 20
 AFF_FRAMES = 8
+# the other protocols, on the disk run (and (k)'s detector): the paraphrase
+# eval at (l)'s counts, the every-checkpoint sweep over both saved steps with
+# SWEEP_CHAINS chains each, the single-step protocol on the dataset's
+# validation split, and the interactive entry point with two instructions
+PARA_DIR = BUILD / "chip_smoke_para"
+SWEEP_DIR = BUILD / "chip_smoke_sweep"
+SINGLE_DIR = BUILD / "chip_smoke_single"
+SWEEP_ENVS, SWEEP_CHAINS = 4, 4
+SINGLE_ENVS = 2
+INTERACTIVE_EP_LEN = 60
 
 
 def fail(msg: str) -> None:
@@ -365,12 +388,14 @@ def check_pad0(tag: str, imgs: torch.Tensor, mean, std) -> float:
 def phase_kernel_pad0(dev: torch.device) -> dict:
     """(a) The kernel at pad 0 with zero offsets, the val transform's
     scale/normalize with the preset's val mean and std, against its plain
-    version bit for bit on the evaluations' 4 and 8 frames per camera and
-    dispatch and on 32; then its device time at 8 frames per camera."""
+    version bit for bit on the evaluations' 1 (interactive), 2, 4 and 8
+    frames per camera and dispatch and on 32; then its device time at 8
+    frames per camera."""
     from hulc2_torch.tools import bench_shift_normalize as bench
 
     err_max = 0.0
-    for n in (DISK_ENVS // DISK_COHORTS, EVAL_ENVS // EVAL_COHORTS, 32):
+    for n in sorted({1, SINGLE_ENVS, SWEEP_ENVS, DISK_ENVS // DISK_COHORTS,
+                     EVAL_ENVS // EVAL_COHORTS, 32}):
         for seed, (cam, hw) in enumerate((("rgb_static", 96), ("rgb_gripper", 64))):
             imgs, _ = bench.make_sets(n, hw, 0, 1, dev, seed)[0]
             err_max = max(err_max, check_pad0("pad0", imgs, *val_norm(cam)))
@@ -854,6 +879,189 @@ def phase_hier_eval(dev: torch.device, card: str, trained) -> dict:
     return launches
 
 
+def eval_diag(log_dir: Path, what: str) -> dict:
+    """``eval_diagnostics.json`` of an evaluation that must have written
+    ``results.json`` beside it."""
+    if not (log_dir / "results.json").is_file():
+        fail(f"the {what} wrote no results.json")
+    return json.loads((log_dir / "eval_diagnostics.json").read_text())
+
+
+def check_launches(launches: dict, n: int, what: str) -> None:
+    if launches["shift_normalize"] != 2 * n:
+        fail(f"{what}: shift_normalize launched {launches['shift_normalize']} times, expected "
+             f"2 x {n}")
+
+
+def phase_paraphrase(dev: torch.device, card: str) -> dict:
+    """(m) The hierarchical eval of (l) under the paraphrase protocol: the
+    policy and the detector get each task's held-out sentences."""
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy
+
+    shutil.rmtree(PARA_DIR, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = evaluate_policy.main([
+        "--train-dir", str(DISK_RUN), "--aff-train-dir", str(AFF_RUN), "--paraphrase-eval",
+        "--fake-env", "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts",
+        str(DISK_COHORTS), "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN),
+        "--log-dir", str(PARA_DIR), "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    diag = eval_diag(PARA_DIR, "paraphrase evaluation")
+    h, records = diag["hierarchical"], diag["subtask_records"]
+    if diag["paraphrase_eval"] is not True or len({r["chain"] for r in records}) != DISK_CHAINS:
+        fail(f"paraphrase eval: {diag['paraphrase_eval']}, {merged['latest']}")
+    if h["aff_predictions"] != len(records):
+        fail(f"{h['aff_predictions']} affordance predictions for {len(records)} subtask starts")
+    check_launches(launches, diag["dispatches"], "paraphrase eval")
+    rate = diag["total_env_steps"] / diag["wall_clock_s"]
+    flush_ms = 1e3 * diag["timings_s"]["aff_flush_s"] / max(h["aff_predictions"], 1)
+    print(f"[para_eval] held-out paraphrases, step {2 * DISK_STEPS} of {DISK_RUN.name} with "
+          f"{AFF_RUN.name}: {DISK_CHAINS} chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts, "
+          f"avg_seq_len {merged['latest']['avg_seq_len']:.3f}; {h['aff_predictions']} "
+          f"predictions, {h['approaches']} approaches, {h['approach_steps']} approach steps; "
+          f"{diag['total_env_steps']} env steps in {diag['wall_clock_s']:.2f} s = {rate:.1f} "
+          f"env-steps/s, {diag['dispatches']} dispatches; aff_flush_s {flush_ms:.2f} ms per "
+          f"prediction; whole entry point {wall_s:.1f} s; launches {launches}; on {card}",
+          flush=True)
+    return launches
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_sweep(dev: torch.device, card: str) -> dict:
+    """(n) ``evaluate_policy --all-checkpoints`` over the disk run's two
+    steps: both in one results.json, "best" the higher avg_seq_len, two
+    launches per dispatch of each step (read from each step's log line)."""
+    import re
+
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    log = logging.getLogger("hulc2_torch.evaluation.evaluate_policy")
+    handler, level = _Messages(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        evaluate_policy.main([
+            "--train-dir", str(DISK_RUN), "--all-checkpoints", "--fake-env", "--device-render",
+            "--n-envs", str(SWEEP_ENVS), "--num-sequences", str(SWEEP_CHAINS), "--ep-len",
+            str(EVAL_EP_LEN), "--log-dir", str(SWEEP_DIR), "--device", "cuda"])
+        torch.cuda.synchronize(dev)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    eval_diag(SWEEP_DIR, "sweep")
+    results = json.loads((SWEEP_DIR / "results.json").read_text())
+    steps = [str(DISK_STEPS), str(2 * DISK_STEPS)]
+    if sorted(k for k in results if k != "best") != sorted(steps):
+        fail(f"the sweep's results.json holds {sorted(results)}, expected {steps} and best")
+    top = max(results[s]["avg_seq_len"] for s in steps)
+    best = results["best"]
+    if best["avg_seq_len"] != top or results[best["epoch"]]["avg_seq_len"] != top:
+        fail(f"best is {best['epoch']} at {best['avg_seq_len']}, the top avg_seq_len is {top}")
+    runs = [re.search(r"(\d+) env steps in ([\d.]+) s .*, (\d+) dispatches", m)
+            for m in handler.messages if m.startswith("evaluation:")]
+    if len(runs) != len(steps) or None in runs:
+        fail(f"expected one evaluation line per step, got {handler.messages}")
+    dispatches = sum(int(m.group(3)) for m in runs)
+    check_launches(launches, dispatches, "sweep")
+    env_steps = sum(int(m.group(1)) for m in runs)
+    loop_s = sum(float(m.group(2)) for m in runs)
+    print(f"[sweep] --all-checkpoints over steps {steps} of {DISK_RUN.name}, {SWEEP_CHAINS} "
+          f"chains each on {SWEEP_ENVS} envs: avg_seq_len " + ", ".join(
+              f"{s} {results[s]['avg_seq_len']:.3f}" for s in steps)
+          + f", best {best['epoch']}; {env_steps} env steps in {loop_s:.1f} s of the loops = "
+          f"{env_steps / loop_s:.1f} env-steps/s, {dispatches} dispatches; whole sweep "
+          f"{wall_s:.1f} s; launches {launches}; on {card}", flush=True)
+    return launches
+
+
+def phase_single_step(dev: torch.device, card: str) -> dict:
+    """(o) ``evaluate_policy --single-step --dataset-path`` on the disk run:
+    one job per oracle-detected validation window, one subtask each."""
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy, harness
+
+    jobs = harness.dataset_singlestep_sequences(DATA_DIR / "validation")
+    shutil.rmtree(SINGLE_DIR, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = evaluate_policy.main([
+        "--train-dir", str(DISK_RUN), "--single-step", "--dataset-path", str(DATA_DIR),
+        "--fake-env", "--device-render", "--n-envs", str(SINGLE_ENVS), "--ep-len",
+        str(EVAL_EP_LEN), "--log-dir", str(SINGLE_DIR), "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    diag = eval_diag(SINGLE_DIR, "single-step evaluation")
+    records = diag["subtask_records"]
+    if not jobs or diag["num_sequences"] != len(jobs) or len(records) != len(jobs) \
+            or sorted(r["chain"] for r in records) != list(range(len(jobs))) \
+            or any(r["pos"] != 0 for r in records):
+        fail(f"{len(jobs)} single-step jobs, {diag['num_sequences']} evaluated, records "
+             f"{[(r['chain'], r['pos']) for r in records]}")
+    check_launches(launches, diag["dispatches"], "single-step eval")
+    rate = diag["total_env_steps"] / diag["wall_clock_s"]
+    print(f"[single_step] {len(jobs)} jobs from the validation split "
+          f"({', '.join(c[0] for _, c in jobs)}), {SINGLE_ENVS} envs: SR "
+          f"{merged['latest']['chain_sr'][1]:.3f}; {diag['total_env_steps']} env steps in "
+          f"{diag['wall_clock_s']:.2f} s = {rate:.1f} env-steps/s, {diag['dispatches']} "
+          f"dispatches; whole entry point {wall_s:.1f} s; launches {launches}; on {card}",
+          flush=True)
+    return launches
+
+
+def phase_interactive(dev: torch.device, card: str) -> dict:
+    """(p) ``interactive.main`` on the disk run with two instructions on a
+    StringIO stdin, one of them from the offline planner."""
+    import contextlib
+    import io
+
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import interactive
+    from hulc2_torch.evaluation.llm_planning import LLMPlanner
+
+    planned = LLMPlanner().instructions("please turn on the led")
+    if not planned:
+        fail("the keyword planner planned nothing for 'please turn on the led'")
+    instructions = ["open the drawer", planned[0]]
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        verdicts = interactive.main(["--train-dir", str(DISK_RUN), "--fake-env", "--ep-len",
+                                     str(INTERACTIVE_EP_LEN), "--device", "cuda"],
+                                    stdin=io.StringIO("\n".join(instructions) + "\n"))
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("-> ")]
+    if len(lines) != len(instructions) or [v[0] for v in verdicts] != instructions:
+        fail(f"expected one verdict line per instruction, got {lines}")
+    steps = sum(v[2] for v in verdicts)
+    check_launches(launches, steps, "interactive")
+    print(f"[interactive] {instructions} -> {lines}; {steps} env steps in {wall_s:.2f} s of the "
+          f"entry point = {steps / wall_s:.1f} env-steps/s (one env, host render, one fetch per "
+          f"step, the policy's load included); launches {launches}; on {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -865,6 +1073,7 @@ def main() -> int:
     # the trainer's lines (epochs, the resume, checkpoints) and warnings
     logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     logging.getLogger("hulc2_torch.train.trainer").setLevel(logging.INFO)
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -886,14 +1095,19 @@ def main() -> int:
     labels = phase_mining()
     detector = phase_aff_train(dev, card, labels)
     hier_launches = phase_hier_eval(dev, card, detector)
+    para_launches = phase_paraphrase(dev, card)
+    sweep_launches = phase_sweep(dev, card)
+    single_launches = phase_single_step(dev, card)
+    interactive_launches = phase_interactive(dev, card)
 
     entry = {
         "name": "shift_normalize",
         "route": "cuda",
         "source": "hulc2_torch/csrc/shift_normalize.cu",
         "replaces": "hulc2_tpu/ops/pallas_shift.py:52",
-        "launches": sum(n["shift_normalize"] for n in (launches, eval_launches, disk_launches,
-                                                        disk_eval_launches, hier_launches)),
+        "launches": sum(n["shift_normalize"] for n in (
+            launches, eval_launches, disk_launches, disk_eval_launches, hier_launches,
+            para_launches, sweep_launches, single_launches, interactive_launches)),
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
@@ -904,13 +1118,18 @@ def main() -> int:
                              "eval": eval_launches["shift_normalize"],
                              "disk_train": disk_launches["shift_normalize"],
                              "disk_eval": disk_eval_launches["shift_normalize"],
-                             "hier_eval": hier_launches["shift_normalize"]},
+                             "hier_eval": hier_launches["shift_normalize"],
+                             "para_eval": para_launches["shift_normalize"],
+                             "sweep": sweep_launches["shift_normalize"],
+                             "single_step": single_launches["shift_normalize"],
+                             "interactive": interactive_launches["shift_normalize"]},
         "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
           f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
           f"{kernel['cast_ms']:.4f} ms); eval_dispatch holds the same per eval dispatch at pad 0",
           flush=True)
+    print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

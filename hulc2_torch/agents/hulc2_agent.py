@@ -117,7 +117,7 @@ class Hulc2Agent:
         if "lang" in goal:
             lang = np.asarray(goal["lang"])
             if lang.ndim == 1:
-                lang = np.broadcast_to(lang[None], (self.n_envs, lang.shape[-1]))
+                lang = np.repeat(lang[None], self.n_envs, axis=0)
             dev_goal = {"lang": self._to_device(lang)}
         else:
             dev_goal = goal

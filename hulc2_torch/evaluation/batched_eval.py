@@ -11,6 +11,9 @@ time per K env steps approaches max(host sim time, C x dispatch time).
 
 Each env works through its own queue of (initial_state, chain) jobs; when
 env i finishes (or fails) its chain, it resets to its next job at once.
+Under the paraphrase protocol each chain's goals, the policy's and the
+detector's, are the task's variant ``job_idx % n_variants``.
+``BatchedEvaluator`` is the single-cohort case.
 
 Given an affordance predictor, the evaluator runs the hierarchical (HULC++)
 mode: at each subtask start the env's static frame and the task's
@@ -136,7 +139,7 @@ class _Cohort:
         robot_obs, scene_obs = get_env_state_for_initial_condition(dict(initial_state))
         self.obs[i] = self.farm.envs[i].reset(robot_obs=robot_obs, scene_obs=scene_obs)
         self.begin_subtask(i, job)
-        self.goals[i] = self.ev.goal_for(job.chain[0])
+        self.goals[i] = self.ev.goal_for(job.chain[0], job.job_idx)
         return True
 
     def begin_subtask(self, i: int, job: _EnvJob):
@@ -214,7 +217,7 @@ class _Cohort:
                     advance_chain = True
                 else:
                     self.begin_subtask(i, job)
-                    self.goals[i] = self.ev.goal_for(job.chain[job.subtask_idx])
+                    self.goals[i] = self.ev.goal_for(job.chain[job.subtask_idx], job.job_idx)
             elif job.steps_left <= 0:
                 self.ev.record_subtask(job, subtask, False)
                 advance_chain = True
@@ -233,6 +236,10 @@ class PipelinedEvaluator:
     with the text tower, or a sentence embedding. ``affordance`` (an
     ``AffordancePredictor``) turns on the hierarchical mode, with
     ``aff_lang_embeddings`` mapping each task to the detector's token ids.
+    ``lang_variants`` and ``aff_lang_variants`` (the paraphrase protocol) map
+    each task to a list of goals: chain ``job_idx`` gets variant ``job_idx %
+    n_variants`` for every subtask, so each held-out sentence is used by an
+    equal share of the chains.
     """
 
     def __init__(
@@ -243,10 +250,14 @@ class PipelinedEvaluator:
         oracle: Optional[SceneObsTaskOracle] = None,
         affordance=None,
         aff_lang_embeddings: Optional[Dict[str, np.ndarray]] = None,
+        lang_variants: Optional[Dict[str, Sequence[np.ndarray]]] = None,
+        aff_lang_variants: Optional[Dict[str, Sequence[np.ndarray]]] = None,
     ):
         self.ep_len = ep_len
         self.oracle = oracle or SceneObsTaskOracle()
         self.lang = lang_embeddings
+        self.lang_variants = lang_variants
+        self.aff_lang_variants = aff_lang_variants
         sample_goal = np.asarray(next(iter(lang_embeddings.values())))
         self.goal_dim = int(sample_goal.shape[-1])
         self.goal_dtype = sample_goal.dtype
@@ -319,8 +330,17 @@ class PipelinedEvaluator:
             "approach_steps": int(job.approach_steps),
         })
 
-    def goal_for(self, subtask: str) -> np.ndarray:
+    def goal_for(self, subtask: str, job_idx: int = 0) -> np.ndarray:
+        if self.lang_variants:
+            v = self.lang_variants[subtask]
+            return np.asarray(v[job_idx % len(v)], self.goal_dtype)
         return np.asarray(self.lang[subtask], self.goal_dtype)
+
+    def aff_goal_for(self, subtask: str, job_idx: int = 0) -> np.ndarray:
+        if self.aff_lang_variants:
+            v = self.aff_lang_variants[subtask]
+            return np.asarray(v[job_idx % len(v)])
+        return np.asarray(self.aff_lang[subtask])
 
     # ---- hierarchical (affordance) mode -------------------------------- #
     def _camera(self, env) -> PinholeCamera:
@@ -353,18 +373,20 @@ class PipelinedEvaluator:
             return
         reqs, self._aff_pending = self._aff_pending, []
         preds = self.affordance.predict_batch([obs["rgb_obs"]["rgb_static"] for _, obs, _, _ in reqs],
-                                              [self.aff_lang[t] for _, _, _, t in reqs])
+                                              [self.aff_goal_for(t, job.job_idx)
+                                               for _, _, job, t in reqs])
         self.n_aff_predictions += len(reqs)
         for (env, obs, job, _), pred in zip(reqs, preds):
             job.approach = self._approach_from_pred(env, obs, pred)
 
-    def make_approach(self, env, obs, subtask: str) -> Optional[ApproachController]:
+    def make_approach(self, env, obs, subtask: str, job_idx: int = 0) -> Optional[ApproachController]:
         """One env's query, unbatched: predict, deproject, and the approach, or
         None when no approach is needed."""
         if self.affordance is None:
             return None
         obs = self._ensure_frames(env, obs)
-        pred = self.affordance.predict(obs["rgb_obs"]["rgb_static"], self.aff_lang[subtask])
+        pred = self.affordance.predict(obs["rgb_obs"]["rgb_static"],
+                                       self.aff_goal_for(subtask, job_idx))
         self.n_aff_predictions += 1
         return self._approach_from_pred(env, obs, pred)
 
@@ -438,3 +460,15 @@ class PipelinedEvaluator:
         logger.info("stage timings (s, summed over cohorts): %s",
                     {k: round(v, 1) for k, v in self.timings.items()})
         return list(self._results)
+
+
+class BatchedEvaluator(PipelinedEvaluator):
+    """The single-cohort evaluator: one farm and its agent
+    (``hulc2_tpu/evaluation/batched_eval.py:496``)."""
+
+    def __init__(self, farm, agent, lang_embeddings: Dict[str, np.ndarray], ep_len: int = 360,
+                 oracle: Optional[SceneObsTaskOracle] = None, **kwargs):
+        super().__init__([(farm, agent)], lang_embeddings, ep_len, oracle, **kwargs)
+        self.farm = farm
+        self.agent = agent
+        self.k = len(farm)

@@ -47,7 +47,16 @@ def detect_task_windows(
     (automatic_lang_annotator_mp.py:78-97). Otherwise sub-windows sampled from
     the tail of the range would hold only the post-task retreat yet carry the
     task's sentence. Near-duplicate refinements of the same completion event
-    (overlapping slide positions) are collapsed."""
+    (overlapping slide positions) are collapsed.
+
+    The lookback that re-anchors a hit's start tries starts from ``window``
+    frames before its end down to ``min(27, window // 2)`` frames, every
+    ``min(6, window // 8)`` frames: 27 and 6 at the default window, as in the
+    JAX package, whose fixed bounds leave that range empty, and so drop
+    every hit, at a window of 27 frames or less."""
+    if window < 8:
+        raise ValueError(f"window {window}: task windows need at least 8 frames")
+    shortest, lookback_step = min(27, window // 2), min(6, window // 8)
     oracle = SceneObsTaskOracle()
     hits = []
     for start, end in ep_ids:
@@ -79,7 +88,8 @@ def detect_task_windows(
             # longest unambiguous lookback: shrink the start until exactly
             # this one task completes in range rather than dropping the hit
             db = {"scene_obs": store.load_frame(w_end)["scene_obs"]}
-            for w_start in range(max(start, w_end - window + 1), w_end - 26, 6):
+            for w_start in range(max(start, w_end - window + 1), w_end - shortest + 1,
+                                 lookback_step):
                 da = {"scene_obs": store.load_frame(w_start)["scene_obs"]}
                 if oracle.get_task_info_for_set(da, db, tasks) == {task}:
                     last_end[task] = w_end

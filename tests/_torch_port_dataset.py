@@ -1,10 +1,11 @@
-"""A tiny on-disk dataset in the CALVIN layout for the port's data tests
-(numpy only, so the card's torch-only tests can use it too).
+"""Tiny on-disk datasets in the CALVIN layout for the port's tests (numpy
+only, so the card's torch-only tests can use them too).
 
-Two training episodes and one validation episode of random frames, language
-annotations over real task names and one unknown task, and the generated
-datasets' ``statistics.yaml``. Built like the fixture of
-``tests/test_device_store.py``.
+``write_calvin_dir``: two training episodes and one validation episode of
+random frames, language annotations over real task names and one unknown
+task, and the generated datasets' ``statistics.yaml``. Built like the fixture
+of ``tests/test_device_store.py``. ``write_expert_dir``: a small dataset of
+the port's scripted expert, whose scene states the task oracle can read.
 """
 from pathlib import Path
 
@@ -93,3 +94,17 @@ def host_fused_batches(dm, epoch: int):
 
     return plain(dm.datasets["vis_training"], dm.datasets["lang_training"],
                  dm.cfg["batch_size_vis"], dm.cfg["batch_size_lang"], dm.seed, epoch)
+
+
+# one training episode of 2 tasks and one validation episode of 8, token
+# annotations with the held-out paraphrases: the validation split has five
+# oracle-detected task windows at the annotator's default window (64 frames)
+EXPERT_KW = dict(episodes=1, tasks_per_episode=2, val_episodes=1, val_tasks_per_episode=8,
+                 seed=1, lang_tokens=True, holdout_paraphrases=4)
+
+
+def write_expert_dir(root: Path) -> Path:
+    """A small expert dataset from the port's generator (``EXPERT_KW``)."""
+    from hulc2_torch.tools.make_expert_dataset import make_expert_dataset
+
+    return Path(make_expert_dataset(root, **EXPERT_KW))
