@@ -4,7 +4,8 @@
 
 Phases, in order; any failure exits non-zero and prints no result line:
 1. the card: fail without CUDA; print its name and power limit (nvidia-smi);
-2. build every kernel of the main path from ``hulc2_torch/csrc`` with nvcc;
+2. build every native source of the main path from ``hulc2_torch/csrc``:
+   the kernels with nvcc, the npz frame loader with g++;
 3. each kernel against its plain PyTorch version at the main path's shapes
    (2048 frames of 96x96x3 with pad 4, and of 64x64x3 with pad 3), bit for
    bit, then its device time beside the memory-traffic bound, the plain
@@ -82,7 +83,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
 22. (p) ``interactive.main`` on the disk run with two instructions on a
    StringIO stdin, one from the offline keyword planner, up to 60 steps
    each: one verdict line per instruction, twice per policy step;
-23. the kernels line, the card line, and the final JSON line.
+23. (q) the JAX package's default configuration, ``cfg_low_level``, from here
+   on: the kernel against its plain version, bit for bit, at its
+   ``rand_shift`` train shapes (2048 frames of 200x200x3 with pad 10 and of
+   84x84x3 with pad 4), fp32 and bf16, then its device time beside the
+   bytes bound;
+24. (r) the port's generator writes a dataset at 200/84 px with hash
+   sentence embeddings (no ``--lang-tokens``);
+25. (s) a small fp32 ``cfg_low_level`` policy on the card against the CPU on
+   one fixed batch of the host loader from (r): two train steps, losses
+   within rel 1e-3; then ``python -m hulc2_torch.training --config-name
+   cfg_low_level`` from (r) at full width, through the host loader
+   (``FusedBatchLoader``, the native npz loader, pinned ring), one epoch of
+   LOW_STEPS steps and LOW_VAL val batches, counts reset just before and read
+   just after: losses and val metrics finite, a checkpoint written, the
+   native loader used, shift_normalize launched exactly 2 x train steps + 4 x
+   val steps; the step's wall time and its wait for the loader;
+26. (t) ``evaluate_policy --train-dir`` (s)'s run ``--dataset-path`` (r)'s
+   dataset (its embeddings.npy gives the goals), 8 chains on 8 envs in 2
+   cohorts rendered at 200/84 on the card: results.json written,
+   shift_normalize launched exactly twice per dispatch;
+27. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -131,6 +152,23 @@ SINGLE_DIR = BUILD / "chip_smoke_single"
 SWEEP_ENVS, SWEEP_CHAINS = 4, 4
 SINGLE_ENVS = 2
 INTERACTIVE_EP_LEN = 60
+# the default configuration, cfg_low_level: a 200/84 px dataset with hash
+# embeddings (2 training episodes of 15 tasks, 24 batches of cfg_low_level's
+# 32 + 32 windows, and 1 validation episode of 6),
+# one training run of LOW_STEPS steps and LOW_VAL val batches through the
+# host loader, then 8 chains of the trained run with the dataset's goals
+LOW_DATA = BUILD / "chip_smoke_low_data"
+LOW_RUN = BUILD / "chip_smoke_low"
+LOW_EPISODES, LOW_TASKS, LOW_VAL_TASKS = 2, 15, 6
+LOW_STEPS, LOW_VAL = 20, 2
+LOW_SMALL = [
+    "model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",
+    "model.plan_recognition.fc_hidden_size=64", "model.plan_recognition.dropout_p=0.0",
+    "model.visual_goal.hidden_size=64", "model.language_goal.hidden_size=64",
+    "model.action_decoder.hidden_size=64", "model.compute_dtype=\"float32\"",
+    "datamodule.batch_size_vis=2", "datamodule.batch_size_lang=2",
+    "datamodule.min_window_size=4", "datamodule.max_window_size=4",
+]
 
 
 def fail(msg: str) -> None:
@@ -149,9 +187,9 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     results = build.build()
-    print(f"[build] {len(results)} kernel(s) in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[build] {len(results)} native libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, res in results.items():
-        print(f"[build] {name}: {res.path.name} nvcc {res.seconds:.1f} s", flush=True)
+        print(f"[build] {name}: {res.path.name} in {res.seconds:.1f} s", flush=True)
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}", flush=True)
@@ -1062,6 +1100,219 @@ def phase_interactive(dev: torch.device, card: str) -> dict:
     return launches
 
 
+def phase_kernel_rand_shift(dev: torch.device) -> dict:
+    """(q) The kernel at ``cfg_low_level``'s train shapes against its plain
+    version, bit for bit, fp32 and bf16; then its device time, the plain
+    version's and a bf16 cast's, per launch, beside the bytes bound."""
+    from hulc2_torch.ops import preprocess
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    totals = {"ms": 0.0, "plain_ms": 0.0, "cast_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for seed, (cam, (n, hw, pad)) in enumerate(bench.RAND_SHIFT_SHAPES.items()):
+        sets = bench.make_sets(n, hw, pad, bench.SETS, dev, 30 + seed)
+        imgs, offsets = sets[0]
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = preprocess.random_shift_normalize(imgs, offsets, pad, [0.5], [0.5], out_dtype)
+            want = preprocess.shift_normalize_plain(imgs, offsets, pad, [0.5], [0.5], out_dtype)
+            torch.cuda.synchronize(dev)
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"[rand_shift] shift_normalize {cam} {n}x{hw}x{hw}x3 pad {pad} {out_dtype}: "
+                  f"max_abs_err {err:.3g} (tol 0)", flush=True)
+            if err > 0 or got.shape != want.shape or not torch.isfinite(got.float()).all():
+                fail(f"shift_normalize disagrees with its plain version at {cam} {hw}px {out_dtype}")
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        ms = bench.device_ms(bench.rotating(bench.kernel_fn(pad), sets))
+        plain_ms = bench.device_ms(bench.rotating(bench.plain_fn(pad), sets))
+        cast_ms = bench.device_ms(bench.rotating(bench.cast_fn, sets))
+        bound_ms, totals["bound_by"] = bench.bound(n, hw, 2)
+        print(f"[rand_shift] {cam} bf16, device time per launch: kernel {ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}% of its {bound_ms:.4f} ms bound, {totals['bound_by']}); "
+              f"plain {plain_ms:.4f} ms; bf16 cast of the same bytes {cast_ms:.4f} ms", flush=True)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("cast_ms", cast_ms), ("bound_ms", bound_ms)):
+            totals[k] += v
+        del sets, imgs, offsets, got, want
+    print(f"[rand_shift] per cfg_low_level train step (both cameras): kernel {totals['ms']:.4f} ms, "
+          f"bound {totals['bound_ms']:.4f} ms ({100 * totals['bound_ms'] / totals['ms']:.1f}%), "
+          f"plain {totals['plain_ms']:.4f} ms", flush=True)
+    return totals
+
+
+def phase_low_dataset() -> dict:
+    """(r) The port's generator writes a 200/84 px dataset with hash sentence
+    embeddings; returns its frame counts."""
+    import numpy as np
+
+    from hulc2_torch.tools import make_expert_dataset
+
+    shutil.rmtree(LOW_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_expert_dataset.main([str(LOW_DATA), "--episodes", str(LOW_EPISODES), "--tasks-per-episode",
+                              str(LOW_TASKS), "--val-episodes", "1", "--val-tasks-per-episode",
+                              str(LOW_VAL_TASKS), "--static-hw", "200", "--gripper-hw", "84",
+                              "--seed", "0"])
+    seconds = time.perf_counter() - t0
+    frames = {split: int(sum(e - s + 1 for s, e in np.load(LOW_DATA / split / "ep_start_end_ids.npy")))
+              for split in ("training", "validation")}
+    table = np.load(LOW_DATA / "validation" / "lang_annotations" / "embeddings.npy",
+                    allow_pickle=True).item()
+    dims = {np.asarray(v["emb"]).squeeze().shape for v in table.values()}
+    print(f"[low_dataset] {LOW_EPISODES} training episodes of {LOW_TASKS} tasks, 1 validation "
+          f"episode of {LOW_VAL_TASKS} at 200/84 px: {frames['training']} + {frames['validation']} "
+          f"frames written in {seconds:.1f} s ({sum(frames.values()) / seconds:.1f} frames/s); "
+          f"goal table of {len(table)} tasks, embeddings {dims}", flush=True)
+    if dims != {(384,)}:
+        fail(f"the dataset's goal table holds embeddings of shapes {dims}, expected (384,)")
+    return frames
+
+
+def phase_low_reference(dev: torch.device) -> None:
+    """(s) Two fp32 train steps of a small ``cfg_low_level`` policy on the card
+    and on the CPU, same weights, one fixed batch of the host loader from (r),
+    same offsets and Gumbel draws; the card runs the kernel, the CPU its
+    plain version."""
+    import hulc2_torch.configs  # noqa: F401  (registers the config groups)
+    from hulc2_torch.core.config import compose
+    from hulc2_torch.data.datamodule import Hulc2DataModule
+    from hulc2_torch.data.device_transforms import make_batch_transform
+    from hulc2_torch.models.build import build_policy
+    from hulc2_torch.train.optim import make_optimizer
+    from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    cfg = compose("cfg_low_level", LOW_SMALL + [f"datamodule.root_data_dir={LOW_DATA}"])
+    dm_cfg, mc = cfg["datamodule"], cfg["model"]
+    dm = Hulc2DataModule(dm_cfg, seed=cfg["seed"], device="cpu")
+    dm.setup()
+    raw = {k: torch.from_numpy(v) for k, v in next(iter(dm.fused_train_iter())).items()}
+    n = raw["actions"].shape[0] * raw["actions"].shape[1]
+    g = torch.Generator().manual_seed(4)
+    draws = [({cam: torch.randint(0, 2 * pad + 1, (n, 2), generator=g, dtype=torch.int32)
+               for cam, pad in (("rgb_static", 10), ("rgb_gripper", 4))},
+              -torch.log(-torch.log(torch.rand((raw["actions"].shape[0], 32, 32), generator=g))))
+             for _ in range(2)]
+    losses = {}
+    for device in (torch.device("cpu"), dev):
+        model = build_policy(mc, gripper_hw=84, seed=5).to(device)
+        tf = make_batch_transform(dm_cfg["observation_space"], dm_cfg["proprioception_dims"],
+                                  dm_cfg["transforms"], stats=dm.stats["training"])
+        step = make_train_step(model, make_optimizer(model.parameters(), mc["optimizer"]), tf,
+                               cfg["loss"]["clip_auxiliary_loss_beta"],
+                               aux_betas_from_loss_cfg(cfg["loss"]), device=device)
+        losses[device.type] = [step({k: v.to(device) for k, v in raw.items()}, None, 0.01,
+                                    {k: v.to(device) for k, v in off.items()},
+                                    gumbel.to(device))["loss"].item() for off, gumbel in draws]
+    print(f"[low_reference] small fp32 cfg_low_level policy (no text tower, no task head), "
+          f"2 train steps on a {tuple(raw['rgb_static'].shape)} host-loader batch with 384-d "
+          f"embeddings: cpu {losses['cpu']} cuda {losses['cuda']} (rel tol 1e-3)", flush=True)
+    for a, b in zip(losses["cpu"], losses["cuda"]):
+        if not math.isclose(a, b, rel_tol=1e-3, abs_tol=1e-4):
+            fail(f"card and CPU cfg_low_level losses disagree: {losses}")
+
+
+def phase_low_train(dev: torch.device, card: str) -> dict:
+    """(s) ``python -m hulc2_torch.training --config-name cfg_low_level`` from
+    (r)'s dataset at full width through the host loader; returns the launch
+    counts of the run."""
+    from hulc2_torch import kernels, training
+    from hulc2_torch.data import native_loader
+
+    shutil.rmtree(LOW_RUN, ignore_errors=True)
+    reads = []
+    load_frames_into = native_loader.load_frames_into
+
+    def counting(paths, key, out, n_threads=8):
+        reads.append(len(paths))
+        return load_frames_into(paths, key, out, n_threads)
+
+    native_loader.load_frames_into = counting
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = training.main([
+            "--config-name", "cfg_low_level", "--run-dir", str(LOW_RUN), "--device", "cuda",
+            "--max-epochs", "1", f"datamodule.root_data_dir={LOW_DATA}",
+            f"trainer.limit_train_batches={LOW_STEPS}", f"trainer.limit_val_batches={LOW_VAL}",
+            "trainer.log_every_n_steps=1"])
+        torch.cuda.synchronize(dev)
+    finally:
+        native_loader.load_frames_into = load_frames_into
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if result.step != LOW_STEPS or len(result.history) != LOW_STEPS or len(result.val_history) != 1:
+        fail(f"{result.step} steps, {len(result.history)} train and {len(result.val_history)} val "
+             f"lines, expected {LOW_STEPS} and 1")
+    bad = sorted({k for line in result.history + result.val_history for k, v in line.items()
+                  if not math.isfinite(v)})
+    if bad:
+        fail(f"non-finite cfg_low_level metrics: {bad}")
+    if not (LOW_RUN / "saved_models" / f"{LOW_STEPS}.pt").is_file():
+        fail("no checkpoint of the cfg_low_level run")
+    if result.store_nbytes is not None or result.model.lang_net is not None:
+        fail("the cfg_low_level run used a device store or built a text tower")
+    if not reads:
+        fail("the cfg_low_level run read no frame through the native loader")
+    want = 2 * LOW_STEPS + 4 * LOW_VAL
+    if launches["shift_normalize"] != want:
+        fail(f"shift_normalize launched {launches['shift_normalize']} times for {LOW_STEPS} train "
+             f"and {LOW_VAL} val steps of cfg_low_level, expected {want}")
+    steady_ms = statistics.median(result.step_ms[WARM_STEPS:])
+    wait_ms = statistics.median(result.wait_ms[WARM_STEPS:])
+    cfg = json.loads((LOW_RUN / "config.json").read_text())
+    dm = cfg["datamodule"]
+    windows = dm["batch_size_vis"] + dm["batch_size_lang"]
+    batch_bytes = windows * dm["max_window_size"] * (200 * 200 * 3 + 84 * 84 * 3)
+    print(f"[low_train] cfg_low_level at full width, batch {windows} windows x "
+          f"{dm['max_window_size']} frames ({batch_bytes} bytes of images a batch, assembled on "
+          f"the host): losses " + ", ".join(f"{line['train/loss']:.4f}" for line in result.history),
+          flush=True)
+    print(f"[low_train] val: " + ", ".join(f"{k[4:]} {v:.4f}" for k, v in result.val_history[0].items()
+                                          if k.startswith("val/")), flush=True)
+    print(f"[low_train] {LOW_STEPS} steps + {LOW_VAL} val batches in {wall_s:.1f} s of the entry "
+          f"point; step time {steady_ms:.2f} ms (median of steps {WARM_STEPS}..{LOW_STEPS - 1}, "
+          f"each ending in a fetch of its metrics, spread {min(result.step_ms[WARM_STEPS:]):.1f}-"
+          f"{max(result.step_ms[WARM_STEPS:]):.1f} ms), of which waiting on the loader "
+          f"{wait_ms:.2f} ms ({100 * wait_ms / steady_ms:.1f}%); {batch_bytes / steady_ms / 1e6:.3f} GB/s "
+          f"of images fed; native loader used: {len(reads)} calls, {sum(reads)} frame reads; "
+          f"launches {launches}; on {card}", flush=True)
+    return launches
+
+
+def phase_low_eval(dev: torch.device, card: str) -> dict:
+    """(t) ``evaluate_policy --train-dir`` (s)'s run with (r)'s goal table,
+    frames rendered at 200/84 on the card."""
+    from hulc2_torch import kernels
+    from hulc2_torch.evaluation import evaluate_policy
+
+    log_dir = LOW_RUN / "evaluation"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    merged = evaluate_policy.main([
+        "--train-dir", str(LOW_RUN), "--dataset-path", str(LOW_DATA), "--fake-env",
+        "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS),
+        "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN), "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    diag = eval_diag(log_dir, "cfg_low_level evaluation")
+    if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or \
+            len({r["chain"] for r in diag["subtask_records"]}) != DISK_CHAINS:
+        fail(f"unexpected cfg_low_level results: {merged['latest']}")
+    check_launches(launches, diag["dispatches"], "cfg_low_level eval")
+    rate = diag["total_env_steps"] / diag["wall_clock_s"]
+    print(f"[low_eval] step {LOW_STEPS} of {LOW_RUN.name}, goals from {LOW_DATA.name}'s "
+          f"embeddings.npy, {DISK_CHAINS} chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts, "
+          f"200/84 px rendered on the card: avg_seq_len {merged['latest']['avg_seq_len']:.3f}; "
+          f"{diag['total_env_steps']} env steps in {diag['wall_clock_s']:.2f} s = {rate:.1f} "
+          f"env-steps/s, {diag['dispatches']} dispatches "
+          f"({1e3 * diag['wall_clock_s'] / diag['dispatches']:.2f} ms each); whole entry point "
+          f"{wall_s:.1f} s; launches {launches}; on {card}", flush=True)
+    print(f"[low_eval] host time, summed over cohorts: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in diag["timings_s"].items()), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1099,6 +1350,11 @@ def main() -> int:
     sweep_launches = phase_sweep(dev, card)
     single_launches = phase_single_step(dev, card)
     interactive_launches = phase_interactive(dev, card)
+    low_kernel = phase_kernel_rand_shift(dev)
+    phase_low_dataset()
+    phase_low_reference(dev)
+    low_train_launches = phase_low_train(dev, card)
+    low_eval_launches = phase_low_eval(dev, card)
 
     entry = {
         "name": "shift_normalize",
@@ -1107,8 +1363,10 @@ def main() -> int:
         "replaces": "hulc2_tpu/ops/pallas_shift.py:52",
         "launches": sum(n["shift_normalize"] for n in (
             launches, eval_launches, disk_launches, disk_eval_launches, hier_launches,
-            para_launches, sweep_launches, single_launches, interactive_launches)),
-        "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err),
+            para_launches, sweep_launches, single_launches, interactive_launches,
+            low_train_launches, low_eval_launches)),
+        "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err,
+                           low_kernel["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -1122,12 +1380,17 @@ def main() -> int:
                              "para_eval": para_launches["shift_normalize"],
                              "sweep": sweep_launches["shift_normalize"],
                              "single_step": single_launches["shift_normalize"],
-                             "interactive": interactive_launches["shift_normalize"]},
+                             "interactive": interactive_launches["shift_normalize"],
+                             "low_level_train": low_train_launches["shift_normalize"],
+                             "low_level_eval": low_eval_launches["shift_normalize"]},
         "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "rand_shift_step": {k: low_kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "max_abs_err")},
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
           f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
-          f"{kernel['cast_ms']:.4f} ms); eval_dispatch holds the same per eval dispatch at pad 0",
+          f"{kernel['cast_ms']:.4f} ms); eval_dispatch holds the same per eval dispatch at pad 0, "
+          f"rand_shift_step per cfg_low_level train step (200 px pad 10 and 84 px pad 4)",
           flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

@@ -6,16 +6,17 @@ Equal, key for key, to the JAX package's composition
 ``docs/runs/r5_flagship/aff_config.json``); a test holds the two together.
 Only the ``rn18_tokens_pixel`` group is ported: a frozen ResNet18 encoder, a
 ``mult``-fusion U-Net decoder, a Gaussian depth head and an in-graph CLIP-BPE
-text tower. ``affordance_config`` applies dotted ``key=value`` overrides as
-``configs/flagship.py`` does; ``aff_detection=rn18_tokens_pixel`` names the
-group and is accepted, any other group raises.
+text tower. ``affordance_config`` applies dotted ``key=value`` overrides
+with the registry's ``apply_overrides`` (``core/config.py``);
+``aff_detection=rn18_tokens_pixel`` names the group and is accepted, any
+other group raises.
 """
 from __future__ import annotations
 
 import copy
 from typing import Any, Dict, Sequence
 
-from hulc2_torch.configs.flagship import apply_overrides
+from hulc2_torch.core.config import apply_overrides
 
 GROUP = "rn18_tokens_pixel"
 

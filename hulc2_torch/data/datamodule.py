@@ -1,17 +1,22 @@
 """DataModule: indices, frame stores, datasets and loaders of both splits
 (``hulc2_tpu/data/datamodule.py``).
 
-The port's counterpart of the device-store path the flagship trains on
-(``datamodule.device_store=true``): each split is read into a RAM cache; the
-training split's image keys are uploaded once to the card
-(``data/device_store.py``) and the host copies of them are dropped. The JAX
-package reads the validation windows frame by frame from the npz files,
-which gives the same windows at one file read per frame of every window;
-the cache reads each frame once. Each split's
-``statistics.yaml`` is parsed into ``stats``. Not ported, and refused: the
-host-assembled training path without the device store, the subprocess
-loader, the shared-memory cache, within-window frame skipping and
-single-modality datasets.
+Two training paths, as in the JAX package:
+- ``datamodule.device_store=true`` (the flagship's): the training split is
+  read into a RAM cache, its image keys are uploaded once to the card
+  (``data/device_store.py``) and the host copies of them are dropped;
+- ``device_store: false`` (``cfg_low_level``'s default): every training
+  batch is assembled on the host by ``loader.FusedBatchLoader`` (pinned
+  buffers from a ring when the device is the card), from the npz files
+  through the native loader (``frame_store.NpzFrameStore``) or, with
+  ``use_shm_cache`` (``training --shm-cache``), from a shared-memory cache of
+  the split (``RamFrameStore(use_shm=True)``).
+The validation split is always held in a RAM cache: the JAX package reads
+its windows frame by frame from the npz files, which gives the same windows
+at one file read per frame of every window; the cache reads each frame
+once. Each split's ``statistics.yaml`` is parsed into ``stats``. Not ported,
+and refused by name: the subprocess loader (``loader_isolation``),
+within-window frame skipping and single-modality datasets.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from typing import Dict, Iterator, Optional
 from hulc2_torch.data import episode_index as ei
 from hulc2_torch.data.device_store import DeviceFrameStore, DeviceGatherFusedLoader
 from hulc2_torch.data.frame_store import NpzFrameStore, RamFrameStore
-from hulc2_torch.data.loader import BatchLoader, zip_modalities
+from hulc2_torch.data.loader import BatchLoader, FusedBatchLoader, zip_modalities
 from hulc2_torch.data.statistics import DatasetStatistics, load_statistics
 from hulc2_torch.data.window_dataset import WindowDataset
 from hulc2_torch.utils.device import resolve_device
@@ -33,14 +38,12 @@ MODALITIES = ("vis", "lang")
 
 
 class Hulc2DataModule:
-    def __init__(self, dm_cfg: dict, seed: int = 42, device=None):
+    def __init__(self, dm_cfg: dict, seed: int = 42, device=None, use_shm_cache: bool = False):
         self.cfg = dm_cfg
         self.seed = seed
         self.device = resolve_device(device)
         self.root = Path(dm_cfg["root_data_dir"])
-        if not dm_cfg.get("device_store", False):
-            raise NotImplementedError("only the device-store training path "
-                                      "(datamodule.device_store=true) is ported")
+        self.use_shm_cache = use_shm_cache
         if dm_cfg.get("frame_skip") is not None:
             raise NotImplementedError("datamodule.frame_skip is not ported")
         if dm_cfg.get("loader_isolation", "none") != "none":
@@ -51,7 +54,7 @@ class Hulc2DataModule:
         self._stores: Dict[str, object] = {}
         self.datasets: Dict[str, WindowDataset] = {}
         self.device_store: Optional[DeviceFrameStore] = None
-        self._device_loader: Optional[DeviceGatherFusedLoader] = None
+        self._train_loader = None
 
     def setup(self) -> None:
         obs = self.cfg["observation_space"]
@@ -59,12 +62,17 @@ class Hulc2DataModule:
                       + list(obs["actions"]))
         if "robot_obs" not in frame_keys:
             frame_keys.append("robot_obs")
+        host_train = not self.cfg.get("device_store", False)
         for split in ("training", "validation"):
             split_dir = self.root / split
             self.stats[split] = load_statistics(split_dir)
-            store = RamFrameStore(NpzFrameStore(split_dir, frame_keys),
-                                  ei.load_ep_start_end_ids(split_dir, split), frame_keys,
-                                  num_workers=self.cfg.get("num_workers", 8))
+            npz = NpzFrameStore(split_dir, frame_keys)
+            if split == "training" and host_train and not self.use_shm_cache:
+                store = npz
+            else:
+                store = RamFrameStore(npz, ei.load_ep_start_end_ids(split_dir, split), frame_keys,
+                                      use_shm=self.use_shm_cache and split == "training",
+                                      num_workers=self.cfg.get("num_workers", 8))
             self._stores[split] = store
             indices = {
                 "vis": ei.build_vision_index(
@@ -84,23 +92,38 @@ class Hulc2DataModule:
     def _batch_size(self, key: str) -> int:
         return self.cfg.get(f"batch_size_{key}", self.cfg.get("batch_size", 32))
 
-    def fused_train_iter(self) -> DeviceGatherFusedLoader:
-        """The training loader over the device-resident frame store, built on
-        the first call: the upload happens there, after which the RAM cache's
-        image arrays are dropped (only the small keys are read per step)."""
-        if self._device_loader is None:
-            obs = self.cfg["observation_space"]
-            ram = self._stores["training"]
-            self.device_store = DeviceFrameStore(
-                ram, list(obs["rgb_obs"]) + list(obs["depth_obs"]), self.device)
-            logger.info("device frame store: %d bytes resident, uploaded in %.2f s",
-                        self.device_store.nbytes, self.device_store.upload_s)
-            ram.drop_arrays(self.device_store.image_keys)
-            self._device_loader = DeviceGatherFusedLoader(
-                self.datasets["vis_training"], self.datasets["lang_training"],
-                self.device_store, self._batch_size("vis"), self._batch_size("lang"),
-                seed=self.seed)
-        return self._device_loader
+    def fused_train_iter(self):
+        """The training loader, built on the first call. With the device
+        store: the upload happens here, after which the RAM cache's image
+        arrays are dropped (only the small keys are read per step), and the
+        loader gathers on the device. Without: the host ``FusedBatchLoader``,
+        its buffers pinned on the card."""
+        if self._train_loader is not None:
+            return self._train_loader
+        vis, lang = self.datasets["vis_training"], self.datasets["lang_training"]
+        if not self.cfg.get("device_store", False):
+            self._train_loader = FusedBatchLoader(
+                vis, lang, self._batch_size("vis"), self._batch_size("lang"), seed=self.seed,
+                num_threads=self.cfg.get("num_workers", 4),
+                pin_memory=self.device.type == "cuda")
+            return self._train_loader
+        obs = self.cfg["observation_space"]
+        ram = self._stores["training"]
+        self.device_store = DeviceFrameStore(
+            ram, list(obs["rgb_obs"]) + list(obs["depth_obs"]), self.device)
+        logger.info("device frame store: %d bytes resident, uploaded in %.2f s",
+                    self.device_store.nbytes, self.device_store.upload_s)
+        ram.drop_arrays(self.device_store.image_keys)
+        self._train_loader = DeviceGatherFusedLoader(
+            vis, lang, self.device_store, self._batch_size("vis"), self._batch_size("lang"),
+            seed=self.seed)
+        return self._train_loader
+
+    def close(self) -> None:
+        """Close the shared-memory cache of the training split and unlink it
+        if this datamodule made it (otherwise that happens at exit)."""
+        if self.use_shm_cache and "training" in self._stores:
+            self._stores["training"].cleanup()
 
     def val_iter(self) -> Iterator[Dict]:
         """{"vis": ..., "lang": ...} numpy batches of the validation split, in

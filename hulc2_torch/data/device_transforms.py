@@ -1,9 +1,12 @@
 """On-device batch transform: raw uint8 windows -> model batch (``data/device_transforms.py``).
 
-Only the ``rand_shift_96`` pipelines are ported: per RGB camera a size check
-(the ``resize`` op, which must be a no-op here), then the RandomShift crop and
-the scale/normalize, fused into one launch of the shift_normalize kernel
-(``ops.preprocess.random_shift_normalize``). Crop offsets, one per frame, come
+The RGB pipelines of two presets are ported: ``rand_shift`` (static 200 px
+with pad 10, gripper 84 px with pad 4; ``cfg_low_level``'s) and
+``rand_shift_96`` (96 px with pad 4, 64 px with pad 3; the flagship's). Per
+RGB camera a size check (the ``resize`` op, which must be a no-op here: the
+dataset and the renderer both produce the preset's sizes), then the
+RandomShift crop and the scale/normalize, fused into one launch of the
+shift_normalize kernel (``ops.preprocess.random_shift_normalize``). Crop offsets, one per frame, come
 from the step's generator unless the caller hands them in. The val pipelines
 have no crop: their scale/normalize is the same kernel at pad 0 with zero
 offsets, which computes exactly ``scale_and_normalize``.
@@ -22,6 +25,30 @@ from hulc2_torch.ops import preprocess
 LANG_KEYS = ("lang", "use_for_aux_lang_loss", "lang_task_id")
 
 TRANSFORM_PRESETS = {
+    "rand_shift": {
+        "train": {
+            "rgb_static": [
+                {"op": "resize", "size": 200},
+                {"op": "random_shift", "pad": 10},
+                {"op": "scale_normalize", "mean": [0.5], "std": [0.5]},
+            ],
+            "rgb_gripper": [
+                {"op": "resize", "size": 84},
+                {"op": "random_shift", "pad": 4},
+                {"op": "scale_normalize", "mean": [0.5], "std": [0.5]},
+            ],
+        },
+        "val": {
+            "rgb_static": [
+                {"op": "resize", "size": 200},
+                {"op": "scale_normalize", "mean": [0.5], "std": [0.5]},
+            ],
+            "rgb_gripper": [
+                {"op": "resize", "size": 84},
+                {"op": "scale_normalize", "mean": [0.5], "std": [0.5]},
+            ],
+        },
+    },
     "rand_shift_96": {
         "train": {
             "rgb_static": [
@@ -147,8 +174,8 @@ def make_batch_transform(observation_space: dict, proprio_cfg: dict,
             imgs = raw[cam]
             b, s, h, w, c = imgs.shape
             if (h, w) != (size, size):
-                raise ValueError(f"{cam}: expected {size}x{size} frames, got {h}x{w} "
-                                 "(resize is not ported)")
+                raise ValueError(f"{cam}: the {transforms_name!r} preset expects {size}x{size} "
+                                 f"frames, got {h}x{w} (its resize op is not ported)")
             frames = imgs.reshape(b * s, h, w, c).contiguous()
             if pad is None:
                 pad, off = 0, no_shift(b * s, imgs.device)

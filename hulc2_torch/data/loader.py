@@ -3,22 +3,28 @@
 
 ``BatchLoader`` (with ``collate`` and ``zip_modalities``) yields the
 validation split's {"vis": ..., "lang": ...} numpy batches.
+``FusedBatchLoader`` assembles the training batches of the path without the
+device store on the host: fused [vis; lang] rows, every byte written once
+into its final buffer by the thread that read it. For the card those buffers
+are pinned and come from a small ring (``PinnedRing``), so that the copy to
+the device needs neither a second host copy nor a wait.
 ``DevicePrefetcher`` runs a training batch stream in a thread: on the card it
 makes the stream's device work (the device store's gather) and the copies of
 its host arrays on a side stream, from pinned memory without waiting, and the
-consumer's stream waits on an event before it reads the batch. The host
-``FusedBatchLoader`` and the subprocess loader (the path without the device
-store) are not ported.
+consumer's stream waits on an event before it reads the batch; a batch from
+the ring gets its slot back with the event of its copy. The subprocess loader
+is not ported.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import queue
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -86,11 +92,179 @@ def zip_modalities(modalities, *loaders) -> Iterator[Dict[str, Dict]]:
         yield dict(zip(modalities, batches))
 
 
+class PinnedRing:
+    """``n_slots`` sets of pinned host buffers of the given (shape, dtype)
+    specs, handed out in turn. A slot is handed out again only after the
+    batch written into it was released with the event of its copy to the
+    device and that event has completed, so a buffer is never rewritten
+    while its copy may still read it. ``close`` makes every wait give up."""
+
+    def __init__(self, specs: Dict[str, tuple], n_slots: int):
+        def pinned(shape, dtype):
+            t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype, pin_memory=True)
+            return t, t.numpy()
+
+        self.slots = [{k: pinned(shape, dtype) for k, (shape, dtype) in specs.items()}
+                      for _ in range(n_slots)]
+        self._free = [threading.Event() for _ in range(n_slots)]
+        for f in self._free:
+            f.set()
+        self._events: List[Optional[torch.cuda.Event]] = [None] * n_slots
+        self._closed = threading.Event()
+
+    def acquire(self, i: int, timeout: float = 600.0) -> Dict[str, np.ndarray]:
+        """Numpy views of slot ``i``'s buffers, once its last copy is done."""
+        deadline = time.monotonic() + timeout
+        while not self._free[i].wait(0.1):
+            if self._closed.is_set():
+                raise RuntimeError("the pinned ring was closed")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"slot {i} of the pinned ring was not released in {timeout} s: "
+                                   "its batches must go through DevicePrefetcher")
+        self._free[i].clear()
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        return {k: arr for k, (_, arr) in self.slots[i].items()}
+
+    def batch(self, i: int) -> "PinnedBatch":
+        return PinnedBatch({k: t for k, (t, _) in self.slots[i].items()}, self, i)
+
+    def release(self, i: int, event: Optional[torch.cuda.Event]) -> None:
+        self._events[i] = event
+        self._free[i].set()
+
+    def close(self) -> None:
+        self._closed.set()
+
+
+class PinnedBatch(dict):
+    """A batch of pinned tensors in a slot of a ``PinnedRing``; ``release``
+    hands the slot back with the event that follows the batch's copy."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], ring: PinnedRing, slot: int):
+        super().__init__(tensors)
+        self.ring, self.slot = ring, slot
+
+    def release(self, event: Optional[torch.cuda.Event]) -> None:
+        self.ring.release(self.slot, event)
+
+
+class FusedBatchLoader:
+    """Single-pass fused-batch assembly on the host (``hulc2_tpu/data/loader.py:103-229``):
+    [vis; lang] rows in one write per byte.
+
+    Each batch's final buffers are allocated once per batch (or taken from a
+    pinned ring) and each worker thread writes its sample's padded window
+    straight into its row (``WindowDataset.write_into``): the vis rows first,
+    then the lang rows in the keys both modalities have, and ``lang``,
+    ``use_for_aux_lang_loss`` and ``lang_task_id`` for the lang rows only.
+    Epoch ``e`` takes its orders from ``default_rng((seed, e + 1, 0|1))`` and
+    its window sizes from ``(dataset seed, e, idx)``, as the JAX loader does.
+    An inner pool fills one batch's rows, a pool of two assembles the next
+    two batches meanwhile. Without ``pin_memory`` batches are dicts of numpy
+    arrays; with it, ``PinnedBatch`` dicts of pinned tensors from a ring of
+    ``RING_SLOTS`` slots, which ``DevicePrefetcher`` copies to the card and
+    releases."""
+
+    LOOKAHEAD = 2
+    RING_SLOTS = LOOKAHEAD + 1  # the batches assembled ahead and the one being copied
+
+    def __init__(self, vis_dataset: WindowDataset, lang_dataset: WindowDataset,
+                 batch_size_vis: int, batch_size_lang: int, seed: int = 0,
+                 num_threads: int = 4, pin_memory: bool = False):
+        self.vis = vis_dataset
+        self.lang = lang_dataset
+        self.bv = batch_size_vis
+        self.bl = batch_size_lang
+        self.seed = seed
+        # the copies are CPU-bound: threads beyond the core count only contend
+        self.num_threads = max(1, min(num_threads, os.cpu_count() or num_threads))
+        self.pin_memory = pin_memory
+        self.epoch = 0
+        vis_specs = vis_dataset.out_specs(batch_size_vis + batch_size_lang)
+        lang_specs = lang_dataset.out_specs(batch_size_vis + batch_size_lang)
+        self.specs = dict(vis_specs)
+        self._lang_only = [k for k in lang_specs if k not in vis_specs]
+        for k in self._lang_only:
+            shape, dtype = lang_specs[k]
+            self.specs[k] = ((batch_size_lang, *shape[1:]), dtype)
+
+    def __len__(self) -> int:
+        return min(len(self.vis) // self.bv, len(self.lang) // self.bl)
+
+    def _orders(self, epoch: int):
+        return (np.random.default_rng((self.seed, epoch, 0)).permutation(len(self.vis)),
+                np.random.default_rng((self.seed, epoch, 1)).permutation(len(self.lang)))
+
+    def _fill(self, pool, out: Dict[str, np.ndarray], vis_idxs, lang_idxs, epoch: int) -> None:
+        # the lang rows follow the vis rows in the shared keys; the lang-only
+        # keys are indexed from 0
+        lang_out = {k: (v if k in self._lang_only else v[self.bv:]) for k, v in out.items()}
+        jobs = ([(self.vis, out, row, idx) for row, idx in enumerate(vis_idxs)]
+                + [(self.lang, lang_out, row, idx) for row, idx in enumerate(lang_idxs)])
+
+        def fill(job):
+            ds, dst, row, idx = job
+            ds.write_into(int(idx), dst, row, epoch)
+
+        if pool is None:
+            for job in jobs:
+                fill(job)
+        else:
+            list(pool.map(fill, jobs))
+
+    def _assemble(self, pool, ring: Optional[PinnedRing], b: int, vis_idxs, lang_idxs, epoch: int):
+        if ring is None:
+            out = {k: np.empty(shape, dtype) for k, (shape, dtype) in self.specs.items()}
+            self._fill(pool, out, vis_idxs, lang_idxs, epoch)
+            return out
+        slot = b % self.RING_SLOTS
+        self._fill(pool, ring.acquire(slot), vis_idxs, lang_idxs, epoch)
+        return ring.batch(slot)
+
+    def __iter__(self) -> Iterator[Dict]:
+        epoch = self.epoch
+        self.epoch += 1
+        # the JAX loader draws the epoch's order after advancing the counter
+        ov, ol = self._orders(self.epoch)
+        nb = len(self)
+        ring = PinnedRing(self.specs, self.RING_SLOTS) if self.pin_memory else None
+
+        def idxs(b):
+            return ov[b * self.bv:(b + 1) * self.bv], ol[b * self.bl:(b + 1) * self.bl]
+
+        if self.num_threads <= 1:
+            try:
+                for b in range(nb):
+                    yield self._assemble(None, ring, b, *idxs(b), epoch)
+            finally:
+                if ring is not None:
+                    ring.close()
+            return
+        pool = ThreadPoolExecutor(max_workers=self.num_threads)
+        outer = ThreadPoolExecutor(max_workers=self.LOOKAHEAD)
+        try:
+            pending = deque(outer.submit(self._assemble, pool, ring, b, *idxs(b), epoch)
+                            for b in range(min(self.LOOKAHEAD, nb)))
+            for b_next in range(len(pending), nb + len(pending)):
+                batch = pending.popleft().result()
+                if b_next < nb:
+                    pending.append(outer.submit(self._assemble, pool, ring, b_next,
+                                                *idxs(b_next), epoch))
+                yield batch
+        finally:
+            if ring is not None:
+                ring.close()
+            outer.shutdown(wait=False, cancel_futures=True)
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
 def to_device(batch: Dict, device: torch.device) -> Dict:
     """A (nested) dict of numpy arrays and tensors on ``device``. Host arrays
-    go to the card through pinned memory without waiting; tensors already on
-    a device of ``device``'s type pass through (``cuda`` and ``cuda:0`` are
-    one device here)."""
+    go to the card through pinned memory without waiting (a tensor that is
+    pinned already is not copied into pinned memory again); tensors already
+    on a device of ``device``'s type pass through (``cuda`` and ``cuda:0``
+    are one device here)."""
     out = {}
     for k, v in batch.items():
         if isinstance(v, dict):
@@ -98,7 +272,9 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
             continue
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
         if t.device.type == "cpu" and device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
+            if not t.is_pinned():
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
         elif t.device.type != device.type:
             t = t.to(device)
         out[k] = t
@@ -113,8 +289,10 @@ class DevicePrefetcher:
     event after each batch; ``__next__`` makes the consumer's current stream
     wait on that event and marks the batch's tensors as used by that stream,
     so the allocator does not hand their memory out while the step may still
-    read it. ``wait_s`` sums the seconds the consumer spent blocked on the
-    queue."""
+    read it. A ``PinnedBatch`` is released with that event, the one that
+    follows its copy. ``wait_s`` sums the seconds the consumer spent blocked
+    on the queue. ``close`` also closes the stream (the loader's generator),
+    so that its worker threads stop."""
 
     def __init__(self, iterator, device, prefetch: int = 2):
         self.device = torch.device(device)
@@ -141,14 +319,16 @@ class DevicePrefetcher:
         ctx = torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
         try:
             with ctx:
-                for batch in self.it:
+                for host in self.it:
                     if self._stopped.is_set():
                         return
-                    batch = to_device(batch, self.device)
+                    batch = to_device(host, self.device)
                     event = None
                     if self.stream is not None:
                         event = torch.cuda.Event()
                         event.record(self.stream)
+                    if isinstance(host, PinnedBatch):
+                        host.release(event)
                     if not self._put((batch, event)):
                         return
         except BaseException as e:  # handed to the consumer, which raises it
@@ -189,3 +369,6 @@ class DevicePrefetcher:
             timeout -= 0.1
             if timeout <= 0:
                 raise RuntimeError("the prefetch thread did not stop")
+        close = getattr(self.it, "close", None)
+        if close is not None:
+            close()

@@ -2,13 +2,15 @@
 
 Unlike the JAX ``RandomWindowDataset`` (200x200 static, 84x84 gripper frames
 that ``rand_shift_96`` then resizes), these frames have the native 96/64 size
-of the expert dataset, and the lang windows carry a ``lang_task_id`` in
-[0, n_tasks) so the task-CE head is on the path. Each call of
+of the expert dataset (any size may be asked for), and the lang windows
+carry a ``lang_task_id`` in [0, n_tasks) so the task-CE head is on the path.
+Their ``lang`` is CLIP-BPE-shaped token ids, or, with ``lang_dim``, normal
+sentence embeddings of that width for a policy without a text tower. Each call of
 ``next_batch`` draws a fresh batch from the generator in bulk on the device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -19,10 +21,10 @@ CONTEXT_LENGTH = 77
 class RandomWindowBatches:
     def __init__(self, batch_vis: int, batch_lang: int, window: int, static_hw: int = 96,
                  gripper_hw: int = 64, action_dim: int = 7, n_tasks: int = 34,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", lang_dim: Optional[int] = None):
         self.batch_vis, self.batch_lang, self.window = batch_vis, batch_lang, window
         self.static_hw, self.gripper_hw = static_hw, gripper_hw
-        self.action_dim, self.n_tasks = action_dim, n_tasks
+        self.action_dim, self.n_tasks, self.lang_dim = action_dim, n_tasks, lang_dim
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -53,7 +55,8 @@ class RandomWindowBatches:
     def next_batch(self) -> Dict[str, Dict[str, torch.Tensor]]:
         g, dev, b = self.generator, self.device, self.batch_lang
         lang = self._window(b)
-        lang["lang"] = self._tokens(b)
+        lang["lang"] = (self._tokens(b) if self.lang_dim is None
+                        else torch.randn((b, self.lang_dim), generator=g, device=dev))
         lang["use_for_aux_lang_loss"] = torch.rand((b,), generator=g, device=dev) > 0.5
         lang["lang_task_id"] = torch.randint(0, self.n_tasks, (b,), generator=g, device=dev)
         return {"vis": self._window(self.batch_vis), "lang": lang}

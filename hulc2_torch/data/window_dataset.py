@@ -132,24 +132,23 @@ class WindowDataset:
         rng = np.random.default_rng((self.seed, epoch, idx))
         ws = self.index.window_size(idx, rng)
         start = int(self.index.episode_lookup[idx])
-        ep = self.store.load_window(start, ws)
+        # the store reads the window's frames straight into the row's leading
+        # ws frames; the padding repeats the last one
+        rows = {cam: out[cam][row] for cam in (list(self.obs_space["rgb_obs"])
+                                               + list(self.obs_space["depth_obs"]))}
+        rows["robot_obs"] = out["robot_obs_raw"][row]
+        rows[self.action_key] = out["actions"][row]
+        self.store.read_window_into(start, ws, {k: dst[:ws] for k, dst in rows.items()})
 
-        for cam in list(self.obs_space["rgb_obs"]) + list(self.obs_space["depth_obs"]):
-            dst = out[cam][row]
-            dst[:ws] = ep[cam]
-            dst[ws:] = ep[cam][-1]
-        dst = out["robot_obs_raw"][row]
-        dst[:ws] = ep["robot_obs"]
-        dst[ws:] = ep["robot_obs"][-1]
-
-        acts = ep[self.action_key]
-        dst = out["actions"][row]
-        dst[:ws] = acts
+        for k, dst in rows.items():
+            if k != self.action_key:
+                dst[ws:] = dst[ws - 1]
+        dst = rows[self.action_key]
         if self.relative_actions:  # zero-pad rel dims, repeat the gripper
-            dst[ws:] = 0.0
-            dst[ws:, -1] = acts[-1, -1]
+            dst[ws:, -1] = dst[ws - 1, -1]
+            dst[ws:, :-1] = 0.0
         else:
-            dst[ws:] = acts[-1]
+            dst[ws:] = dst[ws - 1]
 
         if self.index.with_lang:
             ann_row = int(self.index.lang_lookup[idx])

@@ -22,8 +22,14 @@ BPE token ids of the task's canonical sentence, which the policy's text tower
 encodes on every step. ``--n-envs`` fake envs run in lockstep in ``--cohorts``
 cohorts whose policy steps overlap (``batched_eval.PipelinedEvaluator``);
 with ``--device-render`` the envs keep only their state and the policy step
-renders their frames on the device. Success is scored by the scene-obs
-oracle. The agents' draws come from generators seeded from the config's
+renders their frames on the device. A policy without the text tower
+(``language_encoder: none``, ``--config-name cfg_low_level``) takes instead
+each task's embedding from ``--dataset-path``'s
+``validation/<lang_folder>/embeddings.npy``, the table its training data was
+embedded with (``make_expert_dataset`` without ``--lang-tokens`` writes
+one); such a policy has no paraphrase protocol, and its hierarchical mode
+(a detector over embeddings) is not ported. Success is scored by the
+scene-obs oracle. The agents' draws come from generators seeded from the config's
 ``seed``. Writes ``results.json``, ``eval_diagnostics.json`` and snapshots in
 ``partial_results.json`` to ``--log-dir``.
 
@@ -70,6 +76,28 @@ from hulc2_torch.evaluation import harness
 from hulc2_torch.evaluation.sequences import get_sequences
 
 logger = logging.getLogger(__name__)
+
+
+def load_lang_embeddings_file(f: Path):
+    """An ``embeddings.npy``-style dict file -> ({annotation: embedding},
+    {key: annotation}) (``hulc2_tpu/evaluation/evaluate_policy.py:35-41``)."""
+    data = np.load(f, allow_pickle=True).item()
+    return ({v["ann"][0]: np.asarray(v["emb"]).squeeze() for v in data.values()},
+            {k: v["ann"][0] for k, v in data.items()})
+
+
+def load_lang_embeddings(dataset_path: Path, lang_folder: str):
+    """The validation split's sentence -> embedding table and its task ->
+    sentence keys (reference: evaluation/utils.py:88-96 LangEmbeddings)."""
+    return load_lang_embeddings_file(
+        Path(dataset_path) / "validation" / lang_folder / "embeddings.npy")
+
+
+def embedding_goals(dataset_path: Path, lang_folder: str) -> Dict[str, np.ndarray]:
+    """Task -> the fp32 embedding of its canonical sentence, from the
+    dataset's table (``evaluate_policy.py:267-275``)."""
+    ann_emb, task_to_ann = load_lang_embeddings(dataset_path, lang_folder)
+    return {t: np.asarray(ann_emb[a], np.float32) for t, a in task_to_ann.items()}
 
 
 def save_eval_diagnostics(ev, log_dir: Path, args, sequences) -> Dict:
@@ -176,8 +204,9 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="evaluate only one subtask per chain: the per-task success-rate "
                         "protocol (chain_sr 1 is the overall SR)")
     p.add_argument("--dataset-path", default=None,
-                   help="with --single-step: a dataset root whose validation split gives the "
-                        "initial states (oracle-detected task windows)")
+                   help="a dataset root: with --single-step its validation split gives the "
+                        "initial states (oracle-detected task windows); for a policy without "
+                        "the text tower its embeddings.npy gives the goals")
     p.add_argument("--paraphrase-eval", action="store_true",
                    help="goals are each task's held-out paraphrases, rotated over the chains "
                         "(needs a policy with the in-graph text tower)")
@@ -212,9 +241,6 @@ def main(argv: Optional[Sequence[str]] = None):
         p.error("--aff-checkpoint needs --aff-train-dir")
     if not args.fake_env:
         p.error("--fake-env is required: the real CALVIN env is not ported")
-    if args.dataset_path is not None and not args.single_step:
-        p.error("--dataset-path is read by --single-step only: the port's policies "
-                "tokenize their goals")
 
     import torch
 
@@ -233,10 +259,21 @@ def main(argv: Optional[Sequence[str]] = None):
 
     cfg = (load_run_config(Path(args.train_dir)) if args.train_dir is not None
            else flagship_config(args.overrides))
-    if args.paraphrase_eval and not policy_has_text_tower(cfg):
+    tower = policy_has_text_tower(cfg)
+    if args.paraphrase_eval and not tower:
         p.error("--paraphrase-eval needs a policy with the in-graph text tower "
                 "(model.language_encoder clip_text): a policy without one cannot encode "
                 "sentences it never saw")
+    if tower and args.dataset_path is not None and not args.single_step:
+        p.error("--dataset-path without --single-step gives a policy without the text tower "
+                "its goal embeddings: this policy tokenizes its goals")
+    if not tower:
+        if args.dataset_path is None:
+            p.error("a policy without the text tower takes its goals from --dataset-path's "
+                    "validation/<lang_folder>/embeddings.npy")
+        if args.aff_train_dir is not None:
+            p.error("the hierarchical mode of a policy without the text tower (a detector over "
+                    "sentence embeddings, text_tower=false) is not ported")
     val_dir = Path(args.dataset_path) / "validation" if args.dataset_path else None
     if args.single_step and val_dir is not None and val_dir.is_dir():
         # the reference protocol: initial states of oracle-detected windows
@@ -269,10 +306,13 @@ def main(argv: Optional[Sequence[str]] = None):
     log_dir.mkdir(parents=True, exist_ok=True)
     # goals: BPE token ids of each task's canonical validation sentence, for
     # the policy's and the detector's text towers alike; the paraphrase
-    # protocol swaps in the held-out sentences
+    # protocol swaps in the held-out sentences. A policy without a tower
+    # gets the dataset's embedding of the same sentence.
     lang = dict(zip(TASK_NAMES, _tokens([VALIDATION_BANK[t] for t in TASK_NAMES])))
     heldout = {t: _tokens(heldout_annotations(t)) for t in TASK_NAMES}
     variants = heldout if args.paraphrase_eval else None
+    if not tower:
+        lang = embedding_goals(args.dataset_path, cfg["datamodule"]["lang_folder"])
     affordance = None
     if args.aff_train_dir is not None:
         # the captions the detector can be asked by name: canonical and held out

@@ -63,7 +63,8 @@ def main(argv: Optional[Sequence[str]] = None,
 
     if not policy_has_text_tower(load_run_config(Path(args.train_dir))):
         p.error("interactive instructions need a policy with the in-graph text tower "
-                "(model.language_encoder clip_text): the port has no embedding tables")
+                "(model.language_encoder clip_text): typed instructions for a policy over "
+                "sentence embeddings are not ported")
     device = resolve_device(args.device)
     set_precision_flags()
     model, cfg, step = load_policy(args.train_dir)

@@ -1,8 +1,12 @@
 """Model config dict -> the port's ``Hulc2`` (``hulc2_tpu/models/build.py:219``).
 
-Only the flagship family is ported: VisionNetwork static + nature_cnn gripper
-encoders, transformer posterior, discrete plans, CLIP text tower, logistic
-ReLU-RNN decoder, CLIP and task-CE aux losses. Anything else raises.
+Ported: VisionNetwork static + nature_cnn gripper encoders, transformer
+posterior, discrete plans, logistic ReLU-RNN decoder, the CLIP aux loss; the
+language side either the CLIP text tower over token ids (the flagship) or
+none (``cfg_low_level``: precomputed sentence embeddings of
+``language_goal.in_features`` go straight into the goal MLP); the task-CE
+head on the language embedding with ``use_lang_task_auxiliary_loss``.
+Anything else (``lang_mlp`` among them) raises by name.
 """
 from __future__ import annotations
 
@@ -45,11 +49,13 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42) -> Hulc2
     _require(pr_cfg.get("kind", "transformers") == "transformers", f"posterior {pr_cfg.get('kind')}")
     _require(model_cfg.get("use_plan", True), "GCBC (use_plan=false)")
     _require(model_cfg.get("use_clip_auxiliary_loss", True), "use_clip_auxiliary_loss=false")
-    _require(model_cfg.get("use_lang_task_auxiliary_loss", False), "a model without the task head")
     _require(not any(model_cfg.get(k) for k in ("use_state_recons", "use_bc_z_auxiliary_loss",
                                                  "use_mia_auxiliary_loss")), "that aux loss")
-    le_cfg = model_cfg["language_encoder"]
-    _require(le_cfg.get("_name_") == "clip_text", f"language encoder {le_cfg.get('_name_')}")
+    le_cfg = model_cfg.get("language_encoder") or {}
+    tower = le_cfg.get("_name_") == "clip_text"
+    _require(tower or le_cfg.get("_name_") in (None, "none"),
+             f"language encoder {le_cfg.get('_name_')}")
+    task_head = bool(model_cfg.get("use_lang_task_auxiliary_loss", False))
     ad_cfg = model_cfg["action_decoder"]
     _require(ad_cfg.get("kind", "logistic") == "logistic", "the deterministic decoder")
 
@@ -59,8 +65,9 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42) -> Hulc2
     dist = DiscretePlanDistribution(d_cfg["category_size"], d_cfg["class_size"])
     vg_cfg, lg_cfg = model_cfg["visual_goal"], model_cfg["language_goal"]
     latent = vg_cfg["latent_goal_features"]
-    lang_net = ClipTextTransformer(**_without(le_cfg, "_name_"))
-    lang_dim = le_cfg["output_dim"]
+    lang_net = ClipTextTransformer(**_without(le_cfg, "_name_")) if tower else None
+    # the goal MLP takes the tower's output, or the dataset's embeddings
+    lang_dim = le_cfg["output_dim"] if tower else lg_cfg["in_features"]
     pp_cfg = model_cfg["plan_proposal"]
     _require(pp_cfg.get("activation_function", "ReLU") == "ReLU", "that activation")
     _require(pr_cfg.get("position_embedding", True), "a posterior without position embeddings")
@@ -74,7 +81,6 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42) -> Hulc2
             emb_dim, dist.plan_features,
             **_without(pr_cfg, "kind", "position_embedding")),
         visual_goal=VisualGoalEncoder(emb_dim, **vg_cfg),
-        # the goal MLP takes the tower's output; in_features names that width
         language_goal=LanguageGoalEncoder(lang_dim, **_without(lg_cfg, "in_features")),
         action_decoder=LogisticPolicyDecoder(
             dist.plan_features + (slice_hi - slice_lo) + latent, **_without(ad_cfg, "kind")),
@@ -82,7 +88,8 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42) -> Hulc2
                                   **model_cfg.get("proj_vis_lang", {})),
         dist=dist,
         lang_net=lang_net,
-        lang_task_head=LangTaskHead(lang_dim, int(model_cfg.get("lang_task_classes", 34))),
+        lang_task_head=(LangTaskHead(lang_dim, int(model_cfg.get("lang_task_classes", 34)))
+                        if task_head else None),
         kl_balancing_mix=model_cfg.get("kl_balancing_mix", 0.8),
         replan_freq=int(model_cfg.get("replan_freq", 30)),
     )

@@ -1,11 +1,14 @@
 """HULC++ low-level policy: training forward and rollout step (``hulc2_tpu/models/hulc2.py``).
 
 One fused pass over [vis rows; lang rows]: visual goals come from the last
-frame of the vis rows, language goals from the CLIP text tower on the lang
-rows. The discrete plan is a straight-through sample of the posterior; the
+frame of the vis rows, language goals from the lang rows' sentence: through
+the CLIP text tower from its token ids, or, for a policy without a tower
+(``language_encoder: none``), from its precomputed embedding as it is. The
+discrete plan is a straight-through sample of the posterior; the
 KL is balanced with ``.detach()`` on alternating sides; the action loss is the
 logistic-mixture NLL on TCP-frame targets plus the gripper CE; the CLIP aux
-loss is the static-shape masked form; the task CE head supervises the tower.
+loss is the static-shape masked form; the task CE head, where the config
+has one, supervises the language embedding.
 The losses run in fp32 whatever the compute dtype.
 
 ``policy_step`` (``hulc2.py:358-407``) is one rollout step of a batch of envs
@@ -56,7 +59,7 @@ class Hulc2(nn.Module):
                  plan_recognition: PlanRecognitionTransformer, visual_goal: VisualGoalEncoder,
                  language_goal: LanguageGoalEncoder, action_decoder: LogisticPolicyDecoder,
                  proj_vis_lang: ProjVisLang, dist: DiscretePlanDistribution,
-                 lang_net: ClipTextTransformer, lang_task_head: LangTaskHead,
+                 lang_net: Optional[ClipTextTransformer], lang_task_head: Optional[LangTaskHead],
                  kl_balancing_mix: float = 0.8, replan_freq: int = 30):
         super().__init__()
         self.perceptual_encoder = perceptual_encoder
@@ -79,14 +82,14 @@ class Hulc2(nn.Module):
         """Fused [vis; lang] batch -> metrics dict (``fused_n_vis`` form of the
         JAX ``__call__``, with both modalities). ``batch`` holds ``rgb_obs``
         {cam: (B, S, H, W, C)}, ``actions``, ``robot_obs_raw`` and, for the
-        lang rows, ``lang`` token ids, ``use_for_aux_lang_loss`` and
-        ``lang_task_id``. ``gumbel`` (B, categories, classes) replaces the
+        lang rows, ``lang`` (token ids, or embeddings without a tower),
+        ``use_for_aux_lang_loss`` and ``lang_task_id``. ``gumbel`` (B, categories, classes) replaces the
         plan sampler's draw."""
         actions, robot_obs_raw = batch["actions"], batch["robot_obs_raw"]
         splits = {"vis": (0, n_vis), "lang": (n_vis, actions.shape[0])}
 
         emb = self.perceptual_encoder(batch["rgb_obs"], deterministic, generator)
-        lang_emb = self.lang_net(batch["lang"])
+        lang_emb = self.encode_lang(batch["lang"])
         latent_goal = torch.cat([self.visual_goal(emb[:n_vis, -1]), self.language_goal(lang_emb)])
 
         pp_logits = self.plan_proposal(emb[:, 0], latent_goal)
@@ -105,7 +108,8 @@ class Hulc2(nn.Module):
         action_loss = sum(metrics[f"action_loss_{m}"] for m in splits) / len(splits)
         metrics["lang_clip_loss"] = self.clip_auxiliary_loss(
             seq_feat[n_vis:], latent_goal[n_vis:], batch["use_for_aux_lang_loss"])
-        metrics.update(self.lang_task_metrics(lang_emb, batch["lang_task_id"]))
+        if self.lang_task_head is not None:
+            metrics.update(self.lang_task_metrics(lang_emb, batch["lang_task_id"]))
         metrics.update(kl_loss=kl_loss, action_loss=action_loss, total_loss=kl_loss + action_loss)
         return metrics
 
@@ -128,7 +132,7 @@ class Hulc2(nn.Module):
         robot_obs_raw = torch.cat([vis["robot_obs_raw"], lang["robot_obs_raw"]])
         splits = {"vis": (0, n_vis), "lang": (n_vis, actions.shape[0])}
 
-        lang_emb = self.lang_net(lang["lang"])
+        lang_emb = self.encode_lang(lang["lang"])
         emb = self.perceptual_encoder(rgb_obs)
         latent_goal = torch.cat([self.visual_goal(emb[:n_vis, -1]), self.language_goal(lang_emb)])
         pp_logits = self.plan_proposal(emb[:, 0], latent_goal)
@@ -159,6 +163,12 @@ class Hulc2(nn.Module):
         metrics["val_pred_clip_loss"] = self.clip_auxiliary_loss(
             seq_feat[n_vis:], latent_goal[n_vis:], lang["use_for_aux_lang_loss"])
         return metrics
+
+    def encode_lang(self, lang: torch.Tensor) -> torch.Tensor:
+        """The language embedding of a "lang" value: the text tower over token
+        ids, or the precomputed embedding itself for a policy without one
+        (``hulc2.py:92-99``)."""
+        return lang if self.lang_net is None else self.lang_net(lang)
 
     def balanced_kl_per_sample(self, pp_logits: torch.Tensor, pr_logits: torch.Tensor) -> torch.Tensor:
         alpha = self.kl_balancing_mix
@@ -235,13 +245,14 @@ class Hulc2(nn.Module):
         ``rgb_obs`` holds transformed single frames (B, 1, H, W, C) per camera
         and ``robot_obs_raw`` (B, 1, 15). ``goal`` is {"lang": token ids
         (B, 77)}, which pass through the text tower on every step as in the
-        JAX package, or {"rgb_obs": goal frames} for visual goals. A new plan
+        JAX package, or sentence embeddings (B, E) for a policy without a
+        tower, or {"rgb_obs": goal frames} for visual goals. A new plan
         and both action samples are drawn on every step; envs whose step
         counter is a multiple of ``replan_freq`` take the new plan and goal and
         restart the decoder from a zero state (``hulc2.py:394-400``)."""
         emb = self.perceptual_encoder(rgb_obs)
         if "lang" in goal:
-            latent_goal = self.language_goal(self.lang_net(goal["lang"]))
+            latent_goal = self.language_goal(self.encode_lang(goal["lang"]))
         else:
             latent_goal = self.visual_goal(self.perceptual_encoder(goal["rgb_obs"])[:, -1])
         pp_logits = self.plan_proposal(emb[:, 0], latent_goal)

@@ -1,9 +1,13 @@
-"""Device time of the shift_normalize kernel at the flagship train step's shapes.
+"""Device time of the shift_normalize kernel at the train steps' shapes.
 
     python -m hulc2_torch.tools.bench_shift_normalize [--baseline SOURCE.cu]
 
-For each camera of the flagship step (2048 frames of 96x96x3 with pad 4, and
-2048 of 64x64x3 with pad 3), bf16 out, it times the kernel, its plain PyTorch
+For each camera of three launches per step -- the flagship's train step
+(``rand_shift_96``: 2048 frames of 96x96x3 with pad 4, and 2048 of 64x64x3
+with pad 3), ``cfg_low_level``'s train step (``rand_shift``: 2048 of
+200x200x3 with pad 10, 2048 of 84x84x3 with pad 4) and its validation step
+per modality at pad 0 (1024 frames of each) -- bf16 out, it times the
+kernel, its plain PyTorch
 version, ``imgs.to(torch.bfloat16)`` (PyTorch's elementwise cast, which moves
 the same bytes) and ``imgs.clone()`` (a device-to-device copy, whose TB/s is
 the card's streaming rate for a plain copy). Each time is one pair of CUDA
@@ -38,6 +42,10 @@ from hulc2_torch.ops import preprocess
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 SHAPES = {"rgb_static": (2048, 96, 4), "rgb_gripper": (2048, 64, 3)}  # frames, side, pad
+RAND_SHIFT_SHAPES = {"rgb_static": (2048, 200, 10), "rgb_gripper": (2048, 84, 4)}
+RAND_SHIFT_VAL_SHAPES = {"rgb_static": (1024, 200, 0), "rgb_gripper": (1024, 84, 0)}
+STEPS = {"rand_shift_96 train": SHAPES, "rand_shift train": RAND_SHIFT_SHAPES,
+         "rand_shift val": RAND_SHIFT_VAL_SHAPES}
 MEAN, STD = [0.5], [0.5]
 LAUNCHES = 50
 SETS = 4  # 4 x 57 MB of static frames: each set is out of L2 when its turn comes
@@ -157,7 +165,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     summary: Dict = {"card": card}
-    for seed, (cam, (n, hw, pad)) in enumerate(SHAPES.items()):
+    cases = [(f"{step} {cam}", shape) for step, shapes in STEPS.items() for cam, shape in shapes.items()]
+    for seed, (cam, (n, hw, pad)) in enumerate(cases):
         sets = make_sets(n, hw, pad, SETS, dev, seed)
         bound_ms, _ = bound(n, hw, 2)
         variants = {"kernel": kernel_fn(pad), "plain": plain_fn(pad), "cast": cast_fn,

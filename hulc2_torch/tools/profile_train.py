@@ -1,7 +1,7 @@
-"""Where the time of the flagship train step goes, on the card.
+"""Where the time of a policy train step goes, on the card.
 
-    python -m hulc2_torch.tools.profile_train [--steps 5] [--warmup 5] [--trace OUT.json]
-        [--data DATASET [--store-rows N]] [key=value ...]
+    python -m hulc2_torch.tools.profile_train [--config-name cfg_low_level] [--steps 5]
+        [--warmup 5] [--trace OUT.json] [--data DATASET [--store-rows N]] [key=value ...]
 
 Takes ``--warmup`` steps, times ``--steps`` more on the host clock (each
 ending in a device synchronise), then runs ``--steps`` steps under
@@ -10,7 +10,8 @@ profiler, the device-busy time (union of the kernels' intervals), the idle
 share (the rest of the unprofiled wall time), the count of kernels and
 copies, the device time by kernel family and the top kernels. ``--trace``
 writes the Chrome trace. Counterpart of ``hulc2_tpu/tools/profile_train.py``;
-the overrides are those of ``hulc2_torch.training``.
+``--config-name`` and the overrides are those of ``hulc2_torch.training``
+(the flagship without ``--config-name``).
 
 The steps train on synthetic windows made on the card beforehand, or with
 ``--data`` on the dataset there as ``python -m hulc2_torch.training`` does:
@@ -21,7 +22,12 @@ gather and the copies of the small keys. ``--store-rows N`` tiles the
 training split's frames to N rows before the upload (263393 is the r5 expert
 set's frame count) and sends each window's gather to a random copy of its
 frames, so that a small dataset gives the store, its upload and its gathers
-at a real dataset's size; the batches hold the same pixels.
+at a real dataset's size; the batches hold the same pixels. A config
+without the device store (``cfg_low_level``) trains from the host loader
+(``FusedBatchLoader``: npz files, native reads, pinned ring); then the
+loader alone is timed first, ``--steps`` batches through the prefetch
+thread to the card with no step, which is the most batches per second the
+host can feed.
 """
 from __future__ import annotations
 
@@ -39,8 +45,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from hulc2_torch.configs.flagship import flagship_config
+from hulc2_torch.core.config import compose, options
 from hulc2_torch.data.datamodule import Hulc2DataModule
-from hulc2_torch.data.loader import DevicePrefetcher
+from hulc2_torch.data.loader import DevicePrefetcher, FusedBatchLoader
 from hulc2_torch.train.trainer import Trainer
 from hulc2_torch.training import SyntheticRun
 
@@ -73,12 +80,16 @@ def _union_us(intervals: List[Tuple[float, float]]) -> float:
     return total
 
 
+PREFETCH = 2  # batches the prefetch thread holds on the device ahead of the step
+
+
 class DiskRun:
     """The trainer's train step on the dataset at ``datamodule.root_data_dir``;
     ``next_batch()`` is None and ``step(None)`` takes the next batch from the
     prefetcher, epoch after epoch, waiting for it if it is not ready.
-    ``wait_ms`` holds each step's wait. With ``store_rows`` the store is
-    tiled to that many rows (``tile_store``)."""
+    ``wait_ms`` holds each step's wait. With ``store_rows`` the device store
+    is tiled to that many rows (``tile_store``). ``store`` is None on the
+    host loader's path."""
 
     def __init__(self, cfg: dict, device="cuda", store_rows: Optional[int] = None):
         dm = Hulc2DataModule(cfg["datamodule"], seed=cfg["seed"], device=device)
@@ -98,7 +109,7 @@ class DiskRun:
 
     def _endless(self):
         while True:
-            it = DevicePrefetcher(self.loader, self.device)
+            it = DevicePrefetcher(self.loader, self.device, prefetch=PREFETCH)
             try:
                 yield from it
             finally:
@@ -106,6 +117,21 @@ class DiskRun:
 
     def next_batch(self) -> None:
         return None
+
+    def loader_ms(self, n: int) -> float:
+        """Wall ms per batch of ``n`` batches through a fresh prefetch thread
+        to the device, each synchronised, without a train step."""
+        it = DevicePrefetcher(self.loader, self.device)
+        try:
+            next(it)  # the first batch carries the threads' start
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(it)
+                torch.cuda.synchronize(self.device)
+            return (time.perf_counter() - t0) * 1e3 / n
+        finally:
+            it.close()
 
     def step(self, _) -> Dict[str, torch.Tensor]:
         t0 = time.perf_counter()
@@ -162,19 +188,27 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         help="train from this dataset (make_expert_dataset) through the device store")
     parser.add_argument("--store-rows", type=int, default=None,
                         help="with --data: tile the device store to this many frame rows")
+    parser.add_argument("--config-name", default=None, choices=options("root"),
+                        help="a root of the config registry (default: the flagship preset)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     if args.store_rows and not args.data:
         parser.error("--store-rows needs --data")
+    overrides = list(args.overrides) + ([f"datamodule.root_data_dir={args.data}"] if args.data else [])
+    cfg = (flagship_config(overrides) if args.config_name is None
+           else compose(args.config_name, overrides))
+    if args.store_rows and not cfg["datamodule"]["device_store"]:
+        parser.error("--store-rows tiles the device store: this config has none")
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    if args.data:
-        run = DiskRun(flagship_config(list(args.overrides) + [f"datamodule.root_data_dir={args.data}"]),
-                      store_rows=args.store_rows)
-    else:
-        run = SyntheticRun(flagship_config(args.overrides), device="cuda")
-    _timed_steps(run, args.warmup)
+    run = DiskRun(cfg, store_rows=args.store_rows) if args.data else SyntheticRun(cfg, device="cuda")
+    host_loader = args.data is not None and run.store is None
+    loader_ms = run.loader_ms(args.steps) if host_loader else None
+    # on the host loader's path the batches assembled ahead during the
+    # warm-up (the ring's slots and the prefetch queue) are used up first,
+    # so that the timed steps wait for the loader as a long run does
+    _timed_steps(run, args.warmup + (FusedBatchLoader.RING_SLOTS + PREFETCH if host_loader else 0))
     plain_ms = statistics.median(_timed_steps(run, args.steps))
     wait_ms = statistics.median(run.wait_ms[-args.steps:]) if args.data else None
 
@@ -204,14 +238,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for name, times in by_name.items():
         by_family[family(name)] += sum(times) / 1e3 / args.steps
 
-    print(f"card: {card}; torch {torch.__version__}; "
-          f"{'from ' + args.data + ' (device store)' if args.data else 'synthetic batches'}")
+    source = "synthetic batches"
+    if args.data:
+        source = f"from {args.data} ({'device store' if run.store is not None else 'host loader'})"
+    print(f"card: {card}; torch {torch.__version__}; config {args.config_name or 'flagship'}; {source}")
     print(f"wall per step: {plain_ms:.2f} ms (median of {args.steps}, no profiler), "
           f"{profiled_ms:.2f} ms under the profiler")
-    if wait_ms is not None:
+    if wait_ms is not None and run.store is not None:
         print(f"device store: {run.store.nbytes} bytes resident in "
               f"{run.store.arrays[run.store.image_keys[0]].shape[0]} rows, uploaded in "
               f"{run.store.upload_s:.3f} s")
+    if loader_ms is not None:
+        batch_bytes = sum(int(np.prod(shape)) * np.dtype(dtype).itemsize
+                          for shape, dtype in run.loader.specs.values())
+        print(f"host loader alone: {loader_ms:.2f} ms per batch of {batch_bytes} bytes "
+              f"({batch_bytes / loader_ms / 1e6:.3f} GB/s to the card; {run.loader.num_threads} "
+              f"threads, pinned ring of {run.loader.RING_SLOTS})")
+    if wait_ms is not None:
         print(f"wait for the prefetcher's batch: {wait_ms:.3f} ms per step (median, no profiler)")
     print(f"device busy per step: {busy_ms:.2f} ms; idle share {100 * (1 - busy_ms / plain_ms):.1f}% "
           f"of the unprofiled wall time ({100 * (1 - busy_ms / profiled_ms):.1f}% under the "

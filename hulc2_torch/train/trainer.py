@@ -13,6 +13,12 @@ An explicit loop around the port's train and val steps, with
   every epoch, every step kept (``save_top_k: -1``);
 - ``trainer.limit_train_batches``, ``log_every_n_steps`` and ``max_steps``.
 
+The batches come through ``DevicePrefetcher`` from the datamodule's training
+loader: the device store's gather, or the host ``FusedBatchLoader``
+(``datamodule.device_store=false``). Each log line carries the step's wall
+time and the consumer's wait for the prefetcher (``prefetch_wait_ms``),
+which tells a step held up by its loader from one held up by the device.
+
 The random draws of step k (crop offsets, plan sample, dropout) come from a
 generator seeded with a function of (seed, k), as the JAX step folds the
 step into its root key, and the batches of epoch e follow the loader's
@@ -64,8 +70,10 @@ class FitResult:
     val_history: List[Dict[str, float]] = field(default_factory=list)
     step_ms: List[float] = field(default_factory=list)  # per logged line, see fit
     wait_ms: List[float] = field(default_factory=list)
-    store_nbytes: int = 0  # the device frame store's resident bytes
-    store_upload_s: float = 0.0
+    # the device frame store's resident bytes and upload time; None when the
+    # batches are assembled on the host (datamodule.device_store=false)
+    store_nbytes: Optional[int] = None
+    store_upload_s: Optional[float] = None
 
 
 class Trainer:
@@ -147,8 +155,9 @@ class Trainer:
         log_every = tcfg.get("log_every_n_steps", 50)
         total_steps = 0
         loader = self.dm.fused_train_iter()
-        result.store_nbytes = self.dm.device_store.nbytes
-        result.store_upload_s = self.dm.device_store.upload_s
+        if self.dm.device_store is not None:
+            result.store_nbytes = self.dm.device_store.nbytes
+            result.store_upload_s = self.dm.device_store.upload_s
         # an epoch cut by limit_train_batches is that many steps long (the
         # JAX trainer divides by the uncut length, so a resumed cut run
         # starts over at its first epoch)

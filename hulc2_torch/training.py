@@ -1,20 +1,28 @@
 """Policy training entry point of the port.
 
-    python -m hulc2_torch.training --run-dir DIR [--max-epochs N] [--max-steps K]
-        [--device cuda|cpu] datamodule.root_data_dir=DATASET [key=value ...]
+    python -m hulc2_torch.training --run-dir DIR [--config-name cfg_low_level [--shm-cache]]
+        [--max-epochs N] [--max-steps K] [--device cuda|cpu]
+        datamodule.root_data_dir=DATASET [key=value ...]
     python -m hulc2_torch.training --synthetic --max-steps 3 [--device cuda|cpu]
         [--run-dir DIR] [key=value ...]
 
-Builds the flagship policy from ``configs/flagship.py`` (dotted ``key=value``
-overrides, e.g. ``trainer.limit_val_batches=6``,
-``model.plan_proposal.hidden_size=64`` or ``seed=3``).
+Without ``--config-name`` it builds the flagship policy
+(``configs/flagship.py``); with it, the registry's root of that name
+(``configs/policy.py``; the JAX package's default is ``cfg_low_level``).
+Dotted ``key=value`` overrides and ``group/option=name`` swaps apply, e.g.
+``trainer.limit_val_batches=6``, ``model.plan_proposal.hidden_size=64``,
+``seed=3`` or ``model/language_encoder=clip_scratch``.
 
 From disk (``datamodule.root_data_dir``, a dataset written by
 ``python -m hulc2_torch.tools.make_expert_dataset``), ``train/trainer.py``
-trains with the training split's frames resident on the device, validates
-every epoch and checkpoints into ``<run-dir>/saved_models``; the run dir's
-``config.json`` and checkpoints are what ``evaluate_policy --train-dir``
-loads. Run again with more epochs, it resumes from its newest checkpoint.
+trains, validates every epoch and checkpoints into
+``<run-dir>/saved_models``; the run dir's ``config.json`` and checkpoints are
+what ``evaluate_policy --train-dir`` loads. Run again with more epochs, it
+resumes from its newest checkpoint. With ``datamodule.device_store=true``
+(the flagship) the training split's frames are resident on the device; with
+``false`` (``cfg_low_level``) each batch is assembled on the host from the
+npz files through the native loader, or with ``--shm-cache`` from a
+shared-memory cache of the split.
 
 ``--synthetic`` takes ``--max-steps`` fused train steps on synthetic windows
 made on the device, without validation or checkpoints. Each step appends one
@@ -35,6 +43,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from hulc2_torch.configs.flagship import flagship_config
+from hulc2_torch.core.config import compose, options
 from hulc2_torch.data.datamodule import Hulc2DataModule
 from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
 from hulc2_torch.data.random_data import RandomWindowBatches
@@ -53,7 +62,7 @@ class TrainResult:
 
 
 class SyntheticRun:
-    """The flagship policy, its optimizer, transform, train step and a source
+    """The policy of ``cfg``, its optimizer, transform, train step and a source
     of synthetic batches on ``device``; ``step(raw)`` takes one train step on
     a batch from ``data`` and returns its metrics as device tensors."""
 
@@ -76,7 +85,9 @@ class SyntheticRun:
         self.data = RandomWindowBatches(
             dm_cfg["batch_size_vis"], dm_cfg["batch_size_lang"], dm_cfg["max_window_size"],
             sizes["rgb_static"], sizes["rgb_gripper"], dm_cfg["action_space"],
-            int(model_cfg.get("lang_task_classes", 34)), seed=seed, device=device)
+            int(model_cfg.get("lang_task_classes", 34)), seed=seed, device=device,
+            lang_dim=None if self.model.lang_net is not None
+            else model_cfg["language_goal"]["in_features"])
         self.generator = torch.Generator(device=device).manual_seed(seed + 1)
         self.kl_beta = cfg["loss"]["kl_beta"]
 
@@ -119,12 +130,16 @@ def _synchronize(device: torch.device) -> None:
 
 
 def fit(cfg: dict, run_dir, max_epochs: Optional[int] = None, max_steps: Optional[int] = None,
-        device=None) -> FitResult:
+        device=None, shm_cache: bool = False) -> FitResult:
     """Train the policy ``cfg`` from the dataset at ``datamodule.root_data_dir``
     into ``run_dir``, resuming from its newest checkpoint."""
-    dm = Hulc2DataModule(cfg["datamodule"], seed=cfg.get("seed", 42), device=device)
-    dm.setup()
-    return Trainer(cfg, dm, run_dir, device=dm.device).fit(max_epochs, max_steps)
+    dm = Hulc2DataModule(cfg["datamodule"], seed=cfg.get("seed", 42), device=device,
+                         use_shm_cache=shm_cache)
+    try:
+        dm.setup()
+        return Trainer(cfg, dm, run_dir, device=dm.device).fit(max_epochs, max_steps)
+    finally:
+        dm.close()
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -139,15 +154,22 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--run-dir", default=None,
                         help="run dir (default: runs/torch_synthetic or runs/torch_train)")
+    parser.add_argument("--config-name", default=None, choices=options("root"),
+                        help="a root of the config registry (default: the flagship preset)")
+    parser.add_argument("--shm-cache", action="store_true",
+                        help="read the training split from a shared-memory cache")
     parser.add_argument("overrides", nargs="*", help="dotted key=value config overrides")
     args = parser.parse_intermixed_args(argv)
-    cfg = flagship_config(args.overrides)
+    cfg = (flagship_config(args.overrides) if args.config_name is None
+           else compose(args.config_name, args.overrides))
     if args.synthetic:
         if args.max_steps is None:
             parser.error("--synthetic needs --max-steps")
+        if args.shm_cache:
+            parser.error("--shm-cache reads a dataset: it does not go with --synthetic")
         return train(cfg, args.max_steps, args.device, args.run_dir or "runs/torch_synthetic")
     return fit(cfg, args.run_dir or "runs/torch_train", args.max_epochs, args.max_steps,
-               args.device)
+               args.device, args.shm_cache)
 
 
 if __name__ == "__main__":

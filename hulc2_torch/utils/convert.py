@@ -187,8 +187,10 @@ def lang_task_head(p: Mapping) -> SD:
 
 
 def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch.Tensor]:
-    """The JAX ``Hulc2`` flax variables ({"params": ...}) of the flagship
-    family -> the port's ``state_dict``."""
+    """The JAX ``Hulc2`` flax variables ({"params": ...}) of the ported
+    family -> the port's ``state_dict``: the flagship's, or a
+    ``cfg_low_level`` policy's, which has no ``lang_net`` and no
+    ``lang_task_head`` and whose goal MLP takes the 384-d embeddings."""
     p = params["params"]
     pe = p["perceptual_encoder"]
     sd: SD = {
@@ -203,10 +205,14 @@ def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch
         **_prefixed("action_decoder", logistic_decoder(
             p["action_decoder"], model_cfg["action_decoder"]["num_layers"])),
         **_prefixed("proj_vis_lang", proj_vis_lang(p["proj_vis_lang"])),
-        **_prefixed("lang_net", clip_text(p["lang_net"], model_cfg["language_encoder"]["layers"])),
-        **_prefixed("lang_task_head", lang_task_head(p["lang_task_head"])),
         "logit_scale": _f32(p["logit_scale"]).reshape(()),
     }
+    # a policy without a text tower (language_encoder: none) or task head has none
+    if "lang_net" in p:
+        sd.update(_prefixed("lang_net", clip_text(p["lang_net"],
+                                                  model_cfg["language_encoder"]["layers"])))
+    if "lang_task_head" in p:
+        sd.update(_prefixed("lang_task_head", lang_task_head(p["lang_task_head"])))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 

@@ -7,6 +7,7 @@ the device-store loader (on the CPU here) against the JAX package's host
 dataset statistics; the host copies of the annotation bank, the annotator's
 hash embedding and the KL schedules.
 """
+import os
 import threading
 
 import numpy as np
@@ -125,8 +126,14 @@ class TestHostCopies:
                 np.testing.assert_array_equal(a[k], b[k])
         ram.drop_arrays(["rgb_static"])
         assert "rgb_static" not in ram.arrays
-        with pytest.raises(NotImplementedError):
-            RamFrameStore(npz, ids, KEYS, use_shm=True)
+        # the shared-memory cache holds the same frames (its own test file
+        # covers attaching, cleanup and stale segments)
+        shm = RamFrameStore(npz, ids, KEYS, use_shm=True, shm_tag=f"port_data_{os.getpid()}")
+        try:
+            for k in KEYS:
+                np.testing.assert_array_equal(shm.arrays[k], jram.arrays[k])
+        finally:
+            shm.cleanup()
 
     @pytest.mark.parametrize("load_lang_embeddings", [True, False])
     def test_window_datasets_equal_jax(self, calvin_dir, load_lang_embeddings):
@@ -294,8 +301,8 @@ def test_tiled_store_gives_the_same_batches(calvin_dir):
 
 
 def test_datamodule_refuses_unported_paths(calvin_dir):
-    for key, value in (("device_store", False), ("frame_skip", {"strategy": "random"}),
-                       ("loader_isolation", "process"), ("datasets", {"vis": True, "lang": False})):
+    for key, value in (("frame_skip", {"strategy": "random"}), ("loader_isolation", "process"),
+                       ("datasets", {"vis": True, "lang": False})):
         cfg = dm_cfg(calvin_dir)
         cfg[key] = value
         with pytest.raises(NotImplementedError):
