@@ -103,7 +103,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dataset (its embeddings.npy gives the goals), 8 chains on 8 envs in 2
    cohorts rendered at 200/84 on the card: results.json written,
    shift_normalize launched exactly twice per dispatch;
-27. the kernels line, the card line, and the final JSON line.
+27. (u) the policy's options (PR 8), from here on: for a small fp32 model
+   of each (``cfg_gcbc``, its aux heads, the GRU, LSTM and MLP decoders, the
+   mixture over all 7 dims, the BiLSTM and BiRNN posteriors, continuous
+   plans, the transformer's LayerNorms, ``lang_mlp``, ``vision_conv`` with
+   ``cnn_4_layers``, sinusoid features with a learned temperature and
+   ``cnn_3_layers``, AdamW with a cosine warm-up, SGD with a linear warm-up
+   and clipping), two train steps on the card and on the CPU on one batch
+   of the host loader from (r), same weights, offsets and plan noise:
+   losses within rel 1e-3;
+28. (v) ``python -m hulc2_torch.training --config-name cfg_gcbc`` from (r)
+   at full width, OPT_STEPS steps and OPT_VAL val batches, counts reset just
+   before and read just after: no plan, losses and val metrics finite, a
+   checkpoint, shift_normalize launched exactly 2 x train steps + 4 x val
+   steps, the step's wall time and loader wait; then ``evaluate_policy
+   --train-dir`` on it as in (t), twice per dispatch;
+29. (w) the same for the recurrent variant of ``cfg_low_level`` (the LSTM
+   decoder and its (h, c) carry, the BiLSTM posterior, continuous plans,
+   AdamW, the cosine warm-up), built from registry options and dotted
+   overrides only; its eval takes the (h, c) carry through ``policy_step``,
+   the per-env reset and the pipelined evaluator;
+30. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -161,6 +181,38 @@ LOW_DATA = BUILD / "chip_smoke_low_data"
 LOW_RUN = BUILD / "chip_smoke_low"
 LOW_EPISODES, LOW_TASKS, LOW_VAL_TASKS = 2, 15, 6
 LOW_STEPS, LOW_VAL = 20, 2
+# the policy's options: two full-width runs of OPT_STEPS steps from (r)'s
+# dataset, each scored like (t)
+GCBC_RUN = BUILD / "chip_smoke_gcbc"
+RECURRENT_RUN = BUILD / "chip_smoke_recurrent"
+OPT_STEPS, OPT_VAL = 10, 2
+RECURRENT = ["model.action_decoder.rnn_model=lstm_decoder", "model/plan_recognition=bilstm",
+             "model/distribution=continuous", "model/optimizer=adamw",
+             "model/lr_scheduler=cosine_warmup"]
+OPTION_CASES = {
+    "cfg_gcbc": ("cfg_gcbc", []),
+    "gcbc_aux_heads": ("cfg_gcbc", ["model.use_state_recons=true",
+                                    "model.use_bc_z_auxiliary_loss=true",
+                                    "model.use_mia_auxiliary_loss=true"]),
+    "recurrent_variant": ("cfg_low_level", RECURRENT),
+    "gru_decoder": ("cfg_low_level", ["model.action_decoder.rnn_model=gru_decoder"]),
+    "mlp_decoder_mixture": ("cfg_low_level", ["model.action_decoder.rnn_model=mlp_decoder",
+                                              "model.action_decoder.discrete_gripper=false"]),
+    "birnn_posterior": ("cfg_low_level", ["model/plan_recognition=birnn"]),
+    "transformer_norms_lang_mlp": ("cfg_low_level", [
+        "model.plan_recognition.encoder_normalize=true",
+        "model.plan_recognition.positional_normalize=true", "model/language_encoder=mlp"]),
+    "vision_conv_cnn_4_layers": ("cfg_low_level", [
+        "model/perceptual_encoder/rgb_static=vision_conv",
+        "model.perceptual_encoder.rgb_gripper.conv_encoder=\"cnn_4_layers\""]),
+    "sinusoid_temp_cnn_3_layers": ("cfg_low_level", [
+        "model.perceptual_encoder.rgb_static.use_sinusoid=true",
+        "model.perceptual_encoder.rgb_static.spatial_softmax_temp=null",
+        "model.perceptual_encoder.rgb_gripper.conv_encoder=\"cnn_3_layers\""]),
+    "sgd_linear_warmup_clip": ("cfg_low_level", ["model/optimizer=sgd",
+                                                 "model/lr_scheduler=linear_warmup",
+                                                 "model.optimizer.gradient_clip_norm=1.0"]),
+}
 LOW_SMALL = [
     "model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",
     "model.plan_recognition.fc_hidden_size=64", "model.plan_recognition.dropout_p=0.0",
@@ -514,7 +566,7 @@ def phase_policy_step(dev: torch.device) -> None:
             1e-5 + (1 - 2e-5) * torch.rand((k, 1, 6), generator=g))
         acts = {}
         for name, agent in agents.items():
-            d_draws = PolicyDraws(*(x.to(agent.device) for x in draws))
+            d_draws = PolicyDraws(*(None if x is None else x.to(agent.device) for x in draws))
             acts[name] = agent.step_async(obs, {"lang": lang}, d_draws).cpu()
         err = (acts["cpu"] - acts["cuda"]).abs().max().item()
         worst = max(worst, err)
@@ -1210,14 +1262,17 @@ def phase_low_reference(dev: torch.device) -> None:
             fail(f"card and CPU cfg_low_level losses disagree: {losses}")
 
 
-def phase_low_train(dev: torch.device, card: str) -> dict:
+def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
+                    run_dir: Path = LOW_RUN, root: str = "cfg_low_level", overrides=(),
+                    steps: int = LOW_STEPS, val: int = LOW_VAL) -> dict:
     """(s) ``python -m hulc2_torch.training --config-name cfg_low_level`` from
-    (r)'s dataset at full width through the host loader; returns the launch
-    counts of the run."""
+    (r)'s dataset at full width through the host loader (and (v), (w): the
+    same entry point for another root and overrides); returns the launch
+    counts of the run, its median step and loader wait."""
     from hulc2_torch import kernels, training
     from hulc2_torch.data import native_loader
 
-    shutil.rmtree(LOW_RUN, ignore_errors=True)
+    shutil.rmtree(run_dir, ignore_errors=True)
     reads = []
     load_frames_into = native_loader.load_frames_into
 
@@ -1230,87 +1285,150 @@ def phase_low_train(dev: torch.device, card: str) -> dict:
     t0 = time.perf_counter()
     try:
         result = training.main([
-            "--config-name", "cfg_low_level", "--run-dir", str(LOW_RUN), "--device", "cuda",
+            "--config-name", root, "--run-dir", str(run_dir), "--device", "cuda",
             "--max-epochs", "1", f"datamodule.root_data_dir={LOW_DATA}",
-            f"trainer.limit_train_batches={LOW_STEPS}", f"trainer.limit_val_batches={LOW_VAL}",
-            "trainer.log_every_n_steps=1"])
+            f"trainer.limit_train_batches={steps}", f"trainer.limit_val_batches={val}",
+            "trainer.log_every_n_steps=1", *overrides])
         torch.cuda.synchronize(dev)
     finally:
         native_loader.load_frames_into = load_frames_into
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    if result.step != LOW_STEPS or len(result.history) != LOW_STEPS or len(result.val_history) != 1:
-        fail(f"{result.step} steps, {len(result.history)} train and {len(result.val_history)} val "
-             f"lines, expected {LOW_STEPS} and 1")
+    what = f"{root} {' '.join(overrides)}".strip()
+    if result.step != steps or len(result.history) != steps or len(result.val_history) != 1:
+        fail(f"{what}: {result.step} steps, {len(result.history)} train and "
+             f"{len(result.val_history)} val lines, expected {steps} and 1")
     bad = sorted({k for line in result.history + result.val_history for k, v in line.items()
                   if not math.isfinite(v)})
     if bad:
-        fail(f"non-finite cfg_low_level metrics: {bad}")
-    if not (LOW_RUN / "saved_models" / f"{LOW_STEPS}.pt").is_file():
-        fail("no checkpoint of the cfg_low_level run")
+        fail(f"non-finite metrics of {what}: {bad}")
+    if not (run_dir / "saved_models" / f"{steps}.pt").is_file():
+        fail(f"no checkpoint of the {what} run")
     if result.store_nbytes is not None or result.model.lang_net is not None:
-        fail("the cfg_low_level run used a device store or built a text tower")
+        fail(f"the {what} run used a device store or built a language network")
     if not reads:
-        fail("the cfg_low_level run read no frame through the native loader")
-    want = 2 * LOW_STEPS + 4 * LOW_VAL
+        fail(f"the {what} run read no frame through the native loader")
+    want = 2 * steps + 4 * val
     if launches["shift_normalize"] != want:
-        fail(f"shift_normalize launched {launches['shift_normalize']} times for {LOW_STEPS} train "
-             f"and {LOW_VAL} val steps of cfg_low_level, expected {want}")
+        fail(f"shift_normalize launched {launches['shift_normalize']} times for {steps} train "
+             f"and {val} val steps of {what}, expected {want}")
     steady_ms = statistics.median(result.step_ms[WARM_STEPS:])
     wait_ms = statistics.median(result.wait_ms[WARM_STEPS:])
-    cfg = json.loads((LOW_RUN / "config.json").read_text())
+    cfg = json.loads((run_dir / "config.json").read_text())
     dm = cfg["datamodule"]
     windows = dm["batch_size_vis"] + dm["batch_size_lang"]
     batch_bytes = windows * dm["max_window_size"] * (200 * 200 * 3 + 84 * 84 * 3)
-    print(f"[low_train] cfg_low_level at full width, batch {windows} windows x "
+    print(f"[{tag}] {what} at full width, batch {windows} windows x "
           f"{dm['max_window_size']} frames ({batch_bytes} bytes of images a batch, assembled on "
           f"the host): losses " + ", ".join(f"{line['train/loss']:.4f}" for line in result.history),
           flush=True)
-    print(f"[low_train] val: " + ", ".join(f"{k[4:]} {v:.4f}" for k, v in result.val_history[0].items()
-                                          if k.startswith("val/")), flush=True)
-    print(f"[low_train] {LOW_STEPS} steps + {LOW_VAL} val batches in {wall_s:.1f} s of the entry "
-          f"point; step time {steady_ms:.2f} ms (median of steps {WARM_STEPS}..{LOW_STEPS - 1}, "
+    print(f"[{tag}] lr " + ", ".join(f"{line['train/lr']:.3g}" for line in result.history)
+          + "; val: " + ", ".join(f"{k[4:]} {v:.4f}" for k, v in result.val_history[0].items()
+                                   if k.startswith("val/")), flush=True)
+    print(f"[{tag}] {steps} steps + {val} val batches in {wall_s:.1f} s of the entry "
+          f"point; step time {steady_ms:.2f} ms (median of steps {WARM_STEPS}..{steps - 1}, "
           f"each ending in a fetch of its metrics, spread {min(result.step_ms[WARM_STEPS:]):.1f}-"
           f"{max(result.step_ms[WARM_STEPS:]):.1f} ms), of which waiting on the loader "
           f"{wait_ms:.2f} ms ({100 * wait_ms / steady_ms:.1f}%); {batch_bytes / steady_ms / 1e6:.3f} GB/s "
           f"of images fed; native loader used: {len(reads)} calls, {sum(reads)} frame reads; "
           f"launches {launches}; on {card}", flush=True)
-    return launches
+    return {"launches": launches, "step_ms": steady_ms, "wait_ms": wait_ms, "model": result.model}
 
 
-def phase_low_eval(dev: torch.device, card: str) -> dict:
+def phase_low_eval(dev: torch.device, card: str, tag: str = "low_eval",
+                   run_dir: Path = LOW_RUN, steps: int = LOW_STEPS) -> dict:
     """(t) ``evaluate_policy --train-dir`` (s)'s run with (r)'s goal table,
-    frames rendered at 200/84 on the card."""
+    frames rendered at 200/84 on the card (and (v), (w): their runs);
+    returns the launch counts and env-steps/s."""
     from hulc2_torch import kernels
     from hulc2_torch.evaluation import evaluate_policy
 
-    log_dir = LOW_RUN / "evaluation"
+    log_dir = run_dir / "evaluation"
     shutil.rmtree(log_dir, ignore_errors=True)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     merged = evaluate_policy.main([
-        "--train-dir", str(LOW_RUN), "--dataset-path", str(LOW_DATA), "--fake-env",
+        "--train-dir", str(run_dir), "--dataset-path", str(LOW_DATA), "--fake-env",
         "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS),
         "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    diag = eval_diag(log_dir, "cfg_low_level evaluation")
+    diag = eval_diag(log_dir, f"{run_dir.name} evaluation")
     if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or \
             len({r["chain"] for r in diag["subtask_records"]}) != DISK_CHAINS:
-        fail(f"unexpected cfg_low_level results: {merged['latest']}")
-    check_launches(launches, diag["dispatches"], "cfg_low_level eval")
+        fail(f"unexpected {run_dir.name} results: {merged['latest']}")
+    check_launches(launches, diag["dispatches"], f"{run_dir.name} eval")
     rate = diag["total_env_steps"] / diag["wall_clock_s"]
-    print(f"[low_eval] step {LOW_STEPS} of {LOW_RUN.name}, goals from {LOW_DATA.name}'s "
+    print(f"[{tag}] step {steps} of {run_dir.name}, goals from {LOW_DATA.name}'s "
           f"embeddings.npy, {DISK_CHAINS} chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts, "
           f"200/84 px rendered on the card: avg_seq_len {merged['latest']['avg_seq_len']:.3f}; "
           f"{diag['total_env_steps']} env steps in {diag['wall_clock_s']:.2f} s = {rate:.1f} "
           f"env-steps/s, {diag['dispatches']} dispatches "
           f"({1e3 * diag['wall_clock_s'] / diag['dispatches']:.2f} ms each); whole entry point "
           f"{wall_s:.1f} s; launches {launches}; on {card}", flush=True)
-    print(f"[low_eval] host time, summed over cohorts: " + ", ".join(
+    print(f"[{tag}] host time, summed over cohorts: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in diag["timings_s"].items()), flush=True)
-    return launches
+    return {"launches": launches, "rate": rate}
+
+
+def phase_options_reference(dev: torch.device) -> None:
+    """(u) Two fp32 train steps of a small model of each of the policy's new
+    options on the card and on the CPU, same weights, one fixed batch of the
+    host loader from (r), same offsets and plan noise, each with its
+    config's optimizer, schedule and clipping; the card runs the kernel, the
+    CPU its plain version."""
+    import hulc2_torch.configs  # noqa: F401  (registers the config groups)
+    from hulc2_torch.core.config import compose
+    from hulc2_torch.data.datamodule import Hulc2DataModule
+    from hulc2_torch.data.device_transforms import make_batch_transform
+    from hulc2_torch.models.build import build_policy
+    from hulc2_torch.train.optim import make_optimizer, make_scheduler
+    from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    data = [f"datamodule.root_data_dir={LOW_DATA}"]
+    dm_cfg = compose("cfg_low_level", LOW_SMALL + data)["datamodule"]
+    dm = Hulc2DataModule(dm_cfg, seed=0, device="cpu")
+    dm.setup()
+    raw = {k: torch.from_numpy(v) for k, v in next(iter(dm.fused_train_iter())).items()}
+    b = raw["actions"].shape[0]
+    n = b * raw["actions"].shape[1]
+    t0 = time.perf_counter()
+    for i, (name, (root, overrides)) in enumerate(OPTION_CASES.items()):
+        cfg = compose(root, LOW_SMALL + data + overrides)
+        mc = cfg["model"]
+        g = torch.Generator().manual_seed(40 + i)
+        d = mc["distribution"]
+        draws = [({cam: torch.randint(0, 2 * pad + 1, (n, 2), generator=g, dtype=torch.int32)
+                   for cam, pad in (("rgb_static", 10), ("rgb_gripper", 4))},
+                  torch.randn((b, d["plan_features"]), generator=g) if d["dist"] == "continuous"
+                  else -torch.log(-torch.log(torch.rand((b, d["category_size"], d["class_size"]),
+                                                        generator=g))))
+                 for _ in range(2)]
+        losses = {}
+        for device in (torch.device("cpu"), dev):
+            model = build_policy(mc, gripper_hw=84, static_hw=200, seed=5).to(device)
+            opt = make_optimizer(model.parameters(), mc["optimizer"])
+            tf = make_batch_transform(dm_cfg["observation_space"], dm_cfg["proprioception_dims"],
+                                      dm_cfg["transforms"], stats=dm.stats["training"])
+            step = make_train_step(
+                model, opt, tf, cfg["loss"]["clip_auxiliary_loss_beta"],
+                aux_betas_from_loss_cfg(cfg["loss"]), device=device,
+                scheduler=make_scheduler(opt, mc["optimizer"], mc.get("lr_scheduler"), 20),
+                gradient_clip_norm=mc["optimizer"].get("gradient_clip_norm"))
+            losses[device.type] = [step({k: v.to(device) for k, v in raw.items()}, None, 0.01,
+                                        {k: v.to(device) for k, v in off.items()},
+                                        noise.to(device))["loss"].item() for off, noise in draws]
+        print(f"[options_reference] {name} ({root} {' '.join(overrides)}): cpu {losses['cpu']} "
+              f"cuda {losses['cuda']} (rel tol 1e-3)", flush=True)
+        for a, c in zip(losses["cpu"], losses["cuda"]):
+            if not (math.isfinite(a) and math.isclose(a, c, rel_tol=1e-3, abs_tol=1e-4)):
+                fail(f"card and CPU losses of the {name} option disagree: {losses}")
+    print(f"[options_reference] {len(OPTION_CASES)} options on a "
+          f"{tuple(raw['rgb_static'].shape)} host-loader batch in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1353,8 +1471,31 @@ def main() -> int:
     low_kernel = phase_kernel_rand_shift(dev)
     phase_low_dataset()
     phase_low_reference(dev)
-    low_train_launches = phase_low_train(dev, card)
-    low_eval_launches = phase_low_eval(dev, card)
+    low_train = phase_low_train(dev, card)
+    low_eval = phase_low_eval(dev, card)
+    phase_options_reference(dev)
+    gcbc_train = phase_low_train(dev, card, "gcbc_train", GCBC_RUN, "cfg_gcbc", (), OPT_STEPS,
+                                 OPT_VAL)
+    if gcbc_train["model"].use_plan or gcbc_train["model"].proj_vis_lang is None:
+        fail("the cfg_gcbc run built a plan or no CLIP loss")
+    gcbc_eval = phase_low_eval(dev, card, "gcbc_eval", GCBC_RUN, OPT_STEPS)
+    rec_train = phase_low_train(dev, card, "recurrent_train", RECURRENT_RUN, "cfg_low_level",
+                                RECURRENT, OPT_STEPS, OPT_VAL)
+    rec_model = rec_train["model"]
+    if rec_model.action_decoder.rnn_model != "lstm_decoder" or \
+            type(rec_model.plan_recognition).__name__ != "PlanRecognitionBiLSTM":
+        fail("the recurrent variant built no LSTM decoder or no BiLSTM posterior")
+    del rec_model, gcbc_train["model"], rec_train["model"], low_train["model"]
+    rec_eval = phase_low_eval(dev, card, "recurrent_eval", RECURRENT_RUN, OPT_STEPS)
+    print(f"[options] train step (median, host clock) and loader wait: cfg_low_level "
+          f"{low_train['step_ms']:.2f} ms ({low_train['wait_ms']:.2f} ms waiting), cfg_gcbc "
+          f"{gcbc_train['step_ms']:.2f} ms ({gcbc_train['wait_ms']:.2f}), recurrent variant "
+          f"{rec_train['step_ms']:.2f} ms ({rec_train['wait_ms']:.2f}); eval env-steps/s: "
+          f"cfg_low_level {low_eval['rate']:.1f}, cfg_gcbc {gcbc_eval['rate']:.1f}, recurrent "
+          f"{rec_eval['rate']:.1f}; on {card}", flush=True)
+    low_train_launches, low_eval_launches = low_train["launches"], low_eval["launches"]
+    option_paths = {"gcbc_train": gcbc_train, "gcbc_eval": gcbc_eval,
+                    "recurrent_train": rec_train, "recurrent_eval": rec_eval}
 
     entry = {
         "name": "shift_normalize",
@@ -1364,7 +1505,8 @@ def main() -> int:
         "launches": sum(n["shift_normalize"] for n in (
             launches, eval_launches, disk_launches, disk_eval_launches, hier_launches,
             para_launches, sweep_launches, single_launches, interactive_launches,
-            low_train_launches, low_eval_launches)),
+            low_train_launches, low_eval_launches))
+        + sum(r["launches"]["shift_normalize"] for r in option_paths.values()),
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err,
                            low_kernel["max_abs_err"]),
         "ms": kernel["ms"],
@@ -1382,7 +1524,9 @@ def main() -> int:
                              "single_step": single_launches["shift_normalize"],
                              "interactive": interactive_launches["shift_normalize"],
                              "low_level_train": low_train_launches["shift_normalize"],
-                             "low_level_eval": low_eval_launches["shift_normalize"]},
+                             "low_level_eval": low_eval_launches["shift_normalize"],
+                             **{k: r["launches"]["shift_normalize"]
+                                for k, r in option_paths.items()}},
         "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "rand_shift_step": {k: low_kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                        "max_abs_err")},

@@ -61,12 +61,15 @@ class Hulc2Agent:
 
     def reset_env_slot(self, i: int) -> None:
         """Restart env i's slice of the carry (zero plan, goal and hidden
-        state; step counter 0, so its next step replans). In place, on the
-        stream, after the step that made the carry."""
+        state, each tensor of an LSTM's (h, c) pair; step counter 0, so its
+        next step replans). In place, on the stream, after the step that
+        made the carry."""
         with torch.inference_mode():
             for t in (self.carry.plan, self.carry.latent_goal, self.carry.step):
                 t[i] = 0
-            self.carry.hidden[:, i] = 0
+            hidden = self.carry.hidden
+            for h in hidden if isinstance(hidden, tuple) else (hidden,):
+                h[:, i] = 0
 
     def _to_device(self, a) -> torch.Tensor:
         """A host array on the agent's device. On the card the copy goes

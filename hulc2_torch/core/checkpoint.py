@@ -2,7 +2,8 @@
 
 A run dir holds ``config.json`` (the composed config, the model's spec) and
 ``saved_models/<step>.pt``, one file per saved step with the model's
-parameters, the optimizer's state and the step. A file is written under a
+parameters, the optimizer's and the learning-rate scheduler's state and the
+step. A file is written under a
 temporary name and renamed into place, so a reader never sees a partial
 checkpoint. ``save_top_k=-1`` keeps every step; k > 0 keeps the newest k.
 The JAX package's orbax checkpoints are not readable here.
@@ -38,12 +39,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
-             metrics: Optional[Dict[str, float]] = None) -> Path:
+             metrics: Optional[Dict[str, float]] = None, scheduler=None) -> Path:
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         path = self._path(step)
         tmp = path.with_name(f".{path.name}.tmp")
         torch.save({"step": int(step), "model": model.state_dict(),
                     "optimizer": None if optimizer is None else optimizer.state_dict(),
+                    "scheduler": None if scheduler is None else scheduler.state_dict(),
                     "metrics": {k: float(v) for k, v in (metrics or {}).items()}}, tmp)
         os.replace(tmp, path)
         if self.save_top_k > 0:

@@ -17,7 +17,10 @@ reference's Hydra stack:
 The resolved config is a plain nested dict; a training run saves it as
 ``config.json``, which is the model's spec at evaluation time. One deviation:
 a dotted override of a key the config does not have raises ``KeyError``
-(the JAX package creates the key), so that a typo cannot pass unnoticed.
+(the JAX package creates the key), so that a typo cannot pass unnoticed;
+the exceptions are the optional keys that the model and optimizer read
+and no composite carries (``CREATABLE``), which an override creates as in
+JAX.
 The JAX package's ``instantiate`` and factory registry are not carried: the
 port builds its modules with ``models.build``.
 """
@@ -33,6 +36,16 @@ _GROUPS: Dict[str, Dict[str, dict]] = {}
 
 _INTERP_RE = re.compile(r"^\$\{([a-zA-Z0-9_./]+)\}$")
 _INTERP_INLINE_RE = re.compile(r"\$\{([a-zA-Z0-9_./]+)\}")
+
+
+# optional keys the port's model and optimizer read with a default, which no
+# registered composite holds: an override may create them (the JAX tests reach
+# the aux heads this way, tests/test_model.py:240-244)
+CREATABLE = frozenset({
+    "model.use_state_recons", "model.use_bc_z_auxiliary_loss", "model.use_mia_auxiliary_loss",
+    "model.use_lang_task_auxiliary_loss", "model.lang_task_classes",
+    "model.optimizer.gradient_clip_norm",
+})
 
 
 def register(group: str, name: str, cfg: dict) -> dict:
@@ -88,7 +101,7 @@ def _set_path(cfg: dict, dotted: str, value: Any, strict: bool, override: str) -
                 raise KeyError(f"override {override!r}: no config section {k!r}")
             node[k] = {}
         node = node[k]
-    if strict and leaf not in node:
+    if strict and leaf not in node and dotted not in CREATABLE:
         raise KeyError(f"override {override!r}: unknown key {leaf!r}; known: {sorted(node)}")
     node[leaf] = value
 
@@ -106,7 +119,7 @@ def apply_overrides(cfg: dict, overrides: Sequence[str]) -> dict:
     ``group/sub=option`` swaps in a config-group option at the dotted path
     the slashes give (without the group root when that is not a top-level
     key of ``cfg``); ``group=option`` for a registered top-level group selects
-    it; ``a.b.c=value`` sets an existing key."""
+    it; ``a.b.c=value`` sets an existing key (or creates one of ``CREATABLE``)."""
     for ov in overrides:
         key, sep, val = ov.partition("=")
         if not sep:

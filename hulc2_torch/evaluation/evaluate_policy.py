@@ -299,7 +299,8 @@ def main(argv: Optional[Sequence[str]] = None):
         log_dir = Path(args.log_dir or Path(args.train_dir) / "evaluation")
         logger.info("policy: step %d of %s", step, args.train_dir)
     else:
-        model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"], seed=cfg["seed"])
+        model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
+                             static_hw=sizes["rgb_static"], seed=cfg["seed"])
         results_key = "synthetic"
         log_dir = Path(args.log_dir or "runs/torch_eval")
     model = model.to(device).eval()

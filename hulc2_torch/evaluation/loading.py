@@ -24,7 +24,8 @@ def load_policy(run_dir, step: Optional[int] = None) -> Tuple[Hulc2, dict, int]:
     run_dir = Path(run_dir)
     cfg = load_run_config(run_dir)
     sizes = camera_sizes(cfg["datamodule"]["transforms"])
-    model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"])
+    model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
+                         static_hw=sizes["rgb_static"])
     restored = CheckpointManager(run_dir).restore(step)
     if restored is None:
         raise FileNotFoundError(f"no checkpoints under {run_dir}/saved_models")

@@ -1,27 +1,43 @@
-"""Model config dict -> the port's ``Hulc2`` (``hulc2_tpu/models/build.py:219``).
+"""Model config dict -> the port's ``Hulc2`` (``hulc2_tpu/models/build.py:128-297``).
 
-Ported: VisionNetwork static + nature_cnn gripper encoders, transformer
-posterior, discrete plans, logistic ReLU-RNN decoder, the CLIP aux loss; the
-language side either the CLIP text tower over token ids (the flagship) or
-none (``cfg_low_level``: precomputed sentence embeddings of
-``language_goal.in_features`` go straight into the goal MLP); the task-CE
-head on the language embedding with ``use_lang_task_auxiliary_loss``.
-Anything else (``lang_mlp`` among them) raises by name.
+Option for option as the JAX factory builds them: the static encoder
+(``vision_network`` or ``vision_conv``) and the gripper encoder
+(``vision_network_gripper`` with its nature_cnn, cnn_3_layers or
+cnn_4_layers trunk), with their activation, dropout, L2, sinusoid and
+temperature options; discrete or continuous plans; the transformer, BiLSTM
+or BiRNN posterior; the logistic decoder over a ReLU RNN, GRU, LSTM or MLP,
+with or without a discrete gripper (the deterministic decoder is built as
+JAX builds it, and refused where JAX's ``Hulc2`` would fail); the language
+side the CLIP text tower over token ids, ``lang_mlp`` over precomputed
+embeddings, or none; GCBC (``use_plan=false``); the CLIP aux loss and the
+state, BC-Z, MIA and task-CE heads.
+
+Where the JAX factory ignores a key, so does the port: the plan proposal's
+``activation_function``, the transformer's ``position_embedding`` (positions
+are always added), the BiLSTM/BiRNN posteriors' widths (2048, 2 layers),
+``proj_vis_lang.proj_lang`` (always projected) and ``policy_rnn_dropout_p``.
+Depth, tactile and proprio encoders and the pretrained vision encoders raise
+by name.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from hulc2_torch.models.aux_nets import LangTaskHead, ProjVisLang
+from hulc2_torch.models.aux_nets import (BCZLangDecoder, LangTaskHead, MIALangDiscriminator,
+                                         ProjVisLang, StateDecoder)
 from hulc2_torch.models.clip_text import ClipTextTransformer
-from hulc2_torch.models.decoders import LogisticPolicyDecoder
-from hulc2_torch.models.distributions import DiscretePlanDistribution
-from hulc2_torch.models.goal_encoders import LanguageGoalEncoder, VisualGoalEncoder
+from hulc2_torch.models.decoders import DeterministicDecoder, LogisticPolicyDecoder
+from hulc2_torch.models.distributions import make_distribution
+from hulc2_torch.models.goal_encoders import (LanguageEncoderMLP, LanguageGoalEncoder,
+                                              VisualGoalEncoder)
 from hulc2_torch.models.hulc2 import Hulc2
 from hulc2_torch.models.layers import init_weights_
 from hulc2_torch.models.perceptual import ConcatEncoders
-from hulc2_torch.models.plan_nets import PlanProposalNetwork, PlanRecognitionTransformer
-from hulc2_torch.models.vision import VisionNetwork, VisionNetworkGripper
+from hulc2_torch.models.plan_nets import (PlanProposalNetwork, PlanRecognitionBiLSTM,
+                                          PlanRecognitionBiRNN, PlanRecognitionTransformer)
+from hulc2_torch.models.vision import VisionConv, VisionNetwork, VisionNetworkGripper
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,63 +51,141 @@ def _require(cond: bool, what: str) -> None:
         raise NotImplementedError(f"{what} is not ported")
 
 
-def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42) -> Hulc2:
+def build_static_encoder(cfg: dict, static_hw: int):
+    name = cfg["_name_"]
+    kw = _without(cfg, "_name_")
+    if name == "vision_network":
+        return VisionNetwork(**kw)
+    if name == "vision_conv":
+        return VisionConv(static_hw, **kw)
+    raise NotImplementedError(f"static encoder {name!r} is not ported")
+
+
+def build_gripper_encoder(cfg: dict, gripper_hw: int):
+    _require(cfg["_name_"] == "vision_network_gripper", f"gripper encoder {cfg['_name_']!r}")
+    return VisionNetworkGripper(gripper_hw, **_without(cfg, "_name_"))
+
+
+def build_plan_recognition(pr_cfg: dict, in_features: int, state_dim: int):
+    kind = pr_cfg.get("kind", "transformers")
+    if kind == "transformers":
+        return PlanRecognitionTransformer(
+            in_features, state_dim, num_heads=pr_cfg.get("num_heads", 8),
+            num_layers=pr_cfg.get("num_layers", 2),
+            encoder_hidden_size=pr_cfg.get("encoder_hidden_size", 2048),
+            fc_hidden_size=pr_cfg.get("fc_hidden_size", 4096),
+            max_position_embeddings=pr_cfg.get("max_position_embeddings", 32),
+            dropout_p=pr_cfg.get("dropout_p", 0.1),
+            encoder_normalize=pr_cfg.get("encoder_normalize", False),
+            positional_normalize=pr_cfg.get("positional_normalize", False))
+    # the JAX factory builds both recurrent posteriors at their defaults, 2048 x 2
+    if kind == "bilstm":
+        return PlanRecognitionBiLSTM(in_features, state_dim)
+    if kind == "birnn":
+        return PlanRecognitionBiRNN(in_features, state_dim)
+    raise ValueError(f"unknown plan_recognition kind {kind!r}")
+
+
+def build_action_decoder(ad_cfg: dict, in_features: int):
+    kind = ad_cfg.get("kind", "logistic")
+    common = dict(
+        out_features=ad_cfg.get("out_features", 7),
+        hidden_size=ad_cfg.get("hidden_size", 2048),
+        num_layers=ad_cfg.get("num_layers", 2),
+        rnn_model=ad_cfg.get("rnn_model", "rnn_decoder"),
+        policy_rnn_dropout_p=ad_cfg.get("policy_rnn_dropout_p", 0.0),
+        perceptual_emb_slice=tuple(ad_cfg.get("perceptual_emb_slice", (64, 128))),
+        gripper_control=ad_cfg.get("gripper_control", True),
+    )
+    if kind == "logistic":
+        return LogisticPolicyDecoder(
+            in_features, n_mixtures=ad_cfg.get("n_mixtures", 10),
+            log_scale_min=ad_cfg.get("log_scale_min", -7.0),
+            num_classes=ad_cfg.get("num_classes", 10),
+            gripper_alpha=ad_cfg.get("gripper_alpha", 1.0),
+            discrete_gripper=ad_cfg.get("discrete_gripper", True),
+            act_max_bound=tuple(ad_cfg.get("act_max_bound", (1.0,) * 7)),
+            act_min_bound=tuple(ad_cfg.get("act_min_bound", (-1.0,) * 7)), **common)
+    if kind == "deterministic":
+        return DeterministicDecoder(in_features, criterion=ad_cfg.get("criterion", "HuberLoss"),
+                                    **common)
+    raise ValueError(f"unknown action_decoder kind {kind!r}")
+
+
+def build_lang_net(le_cfg: Optional[dict], in_features: int):
+    """``model.language_encoder`` -> (network or None, its output width, or
+    ``in_features`` without one)."""
+    name = (le_cfg or {}).get("_name_")
+    if name in (None, "none"):
+        return None, in_features
+    if name == "lang_mlp":
+        net = LanguageEncoderMLP(in_features, out_features=le_cfg.get("out_features", 256),
+                                 hidden_size=le_cfg.get("hidden_size", 2048),
+                                 word_dropout_p=le_cfg.get("word_dropout_p", 0.0),
+                                 activation_function=le_cfg.get("activation_function", "ReLU"))
+        return net, le_cfg.get("out_features", 256)
+    if name == "clip_text":
+        return ClipTextTransformer(**_without(le_cfg, "_name_")), le_cfg["output_dim"]
+    raise ValueError(f"unknown language_encoder {name!r}")
+
+
+def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42,
+                 static_hw: int = 96) -> Hulc2:
     """The policy on the CPU, initialised from ``torch.Generator().manual_seed(seed)``;
-    the caller moves it to its device. ``gripper_hw`` is the gripper camera's
-    image size (it fixes the nature_cnn flatten width)."""
+    the caller moves it to its device. ``gripper_hw`` and ``static_hw`` are
+    the cameras' image sizes (they fix the flatten width of a trunk that
+    flattens its conv output)."""
     pe_cfg = model_cfg["perceptual_encoder"]
-    _require(pe_cfg["rgb_static"]["_name_"] == "vision_network", "this static encoder")
-    _require(pe_cfg["rgb_gripper"]["_name_"] == "vision_network_gripper", "this gripper encoder")
     _require(all(pe_cfg.get(k) is None for k in ("depth_static", "depth_gripper", "tactile",
                                                   "proprio")), "a depth/tactile/proprio encoder")
-    d_cfg, pr_cfg = model_cfg["distribution"], model_cfg["plan_recognition"]
-    _require(d_cfg["dist"] == "discrete", "the continuous plan distribution")
-    _require(pr_cfg.get("kind", "transformers") == "transformers", f"posterior {pr_cfg.get('kind')}")
-    _require(model_cfg.get("use_plan", True), "GCBC (use_plan=false)")
-    _require(model_cfg.get("use_clip_auxiliary_loss", True), "use_clip_auxiliary_loss=false")
-    _require(not any(model_cfg.get(k) for k in ("use_state_recons", "use_bc_z_auxiliary_loss",
-                                                 "use_mia_auxiliary_loss")), "that aux loss")
-    le_cfg = model_cfg.get("language_encoder") or {}
-    tower = le_cfg.get("_name_") == "clip_text"
-    _require(tower or le_cfg.get("_name_") in (None, "none"),
-             f"language encoder {le_cfg.get('_name_')}")
-    task_head = bool(model_cfg.get("use_lang_task_auxiliary_loss", False))
-    ad_cfg = model_cfg["action_decoder"]
-    _require(ad_cfg.get("kind", "logistic") == "logistic", "the deterministic decoder")
-
-    static = VisionNetwork(**_without(pe_cfg["rgb_static"], "_name_"))
-    gripper = VisionNetworkGripper(gripper_hw, **_without(pe_cfg["rgb_gripper"], "_name_"))
+    _require(pe_cfg.get("rgb_gripper") is not None, "a policy without the gripper camera")
+    static = build_static_encoder(pe_cfg["rgb_static"], static_hw)
+    gripper = build_gripper_encoder(pe_cfg["rgb_gripper"], gripper_hw)
     emb_dim = pe_cfg["rgb_static"]["visual_features"] + pe_cfg["rgb_gripper"]["visual_features"]
-    dist = DiscretePlanDistribution(d_cfg["category_size"], d_cfg["class_size"])
-    vg_cfg, lg_cfg = model_cfg["visual_goal"], model_cfg["language_goal"]
-    latent = vg_cfg["latent_goal_features"]
-    lang_net = ClipTextTransformer(**_without(le_cfg, "_name_")) if tower else None
-    # the goal MLP takes the tower's output, or the dataset's embeddings
-    lang_dim = le_cfg["output_dim"] if tower else lg_cfg["in_features"]
-    pp_cfg = model_cfg["plan_proposal"]
-    _require(pp_cfg.get("activation_function", "ReLU") == "ReLU", "that activation")
-    _require(pr_cfg.get("position_embedding", True), "a posterior without position embeddings")
-    slice_lo, slice_hi = ad_cfg["perceptual_emb_slice"]
+    dist = make_distribution(model_cfg["distribution"])
+    use_plan = bool(model_cfg.get("use_plan", True))
+    use_clip = bool(model_cfg.get("use_clip_auxiliary_loss", True))
+    vg_cfg, lg_cfg, pr_cfg = model_cfg["visual_goal"], model_cfg["language_goal"], \
+        model_cfg["plan_recognition"]
+    latent = vg_cfg.get("latent_goal_features", 32)
+    lang_net, lang_dim = build_lang_net(model_cfg.get("language_encoder"),
+                                        lg_cfg.get("in_features", 384))
+    ad_cfg = model_cfg["action_decoder"]
+    slice_lo, slice_hi = ad_cfg.get("perceptual_emb_slice", (64, 128))
+    plan_width = dist.plan_features if use_plan else 0
+    plan_recognition = build_plan_recognition(pr_cfg, emb_dim, dist.state_dim)
+    seq_dim = plan_recognition.seq_features
 
     model = Hulc2(
         perceptual_encoder=ConcatEncoders(static, gripper),
-        plan_proposal=PlanProposalNetwork(emb_dim + latent, dist.plan_features,
-                                          pp_cfg["hidden_size"]),
-        plan_recognition=PlanRecognitionTransformer(
-            emb_dim, dist.plan_features,
-            **_without(pr_cfg, "kind", "position_embedding")),
-        visual_goal=VisualGoalEncoder(emb_dim, **vg_cfg),
-        language_goal=LanguageGoalEncoder(lang_dim, **_without(lg_cfg, "in_features")),
-        action_decoder=LogisticPolicyDecoder(
-            dist.plan_features + (slice_hi - slice_lo) + latent, **_without(ad_cfg, "kind")),
-        proj_vis_lang=ProjVisLang(pr_cfg["fc_hidden_size"], latent,
-                                  **model_cfg.get("proj_vis_lang", {})),
+        plan_proposal=PlanProposalNetwork(emb_dim + latent, dist.state_dim,
+                                          model_cfg["plan_proposal"].get("hidden_size", 2048)),
+        plan_recognition=plan_recognition,
+        visual_goal=VisualGoalEncoder(
+            emb_dim, hidden_size=vg_cfg.get("hidden_size", 2048), latent_goal_features=latent,
+            l2_normalize_goal_embeddings=vg_cfg.get("l2_normalize_goal_embeddings", False)),
+        language_goal=LanguageGoalEncoder(
+            lang_dim, hidden_size=lg_cfg.get("hidden_size", 2048),
+            latent_goal_features=lg_cfg.get("latent_goal_features", 32),
+            l2_normalize_goal_embeddings=lg_cfg.get("l2_normalize_goal_embeddings", False),
+            word_dropout_p=lg_cfg.get("word_dropout_p", 0.0)),
+        action_decoder=build_action_decoder(ad_cfg, plan_width + (slice_hi - slice_lo) + latent),
+        proj_vis_lang=(ProjVisLang(seq_dim, latent,
+                                   (model_cfg.get("proj_vis_lang") or {}).get("output_dim", 32))
+                       if use_clip else None),
         dist=dist,
         lang_net=lang_net,
         lang_task_head=(LangTaskHead(lang_dim, int(model_cfg.get("lang_task_classes", 34)))
-                        if task_head else None),
+                        if model_cfg.get("use_lang_task_auxiliary_loss") else None),
         kl_balancing_mix=model_cfg.get("kl_balancing_mix", 0.8),
         replan_freq=int(model_cfg.get("replan_freq", 30)),
+        use_plan=use_plan,
+        state_decoder=(StateDecoder(emb_dim, (pe_cfg.get("proprio") or {}).get("n_state_obs", 8))
+                       if model_cfg.get("use_state_recons") else None),
+        bcz_lang_decoder=(BCZLangDecoder(seq_dim, lang_dim)
+                          if model_cfg.get("use_bc_z_auxiliary_loss") else None),
+        mia_discriminator=(MIALangDiscriminator(seq_dim, lang_dim)
+                           if model_cfg.get("use_mia_auxiliary_loss") else None),
     )
     model.compute_dtype = COMPUTE_DTYPES[model_cfg.get("compute_dtype", "float32")]
     return init_weights_(model, torch.Generator().manual_seed(seed))

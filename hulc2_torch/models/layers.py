@@ -4,11 +4,19 @@ Every module that holds randomly initialised weights has an
 ``init_weights(generator)`` method; ``init_weights_(model, generator)`` walks
 a model and calls them, so one ``torch.Generator`` decides the whole init.
 Dropout takes its mask from an explicit generator as well.
+
+The GRU and LSTM are torch's ``nn.GRU``/``nn.LSTM`` (cuDNN on the card): the
+JAX package runs the same cells as ``lax.scan`` loops, outside any Pallas
+kernel. They run in fp32 whatever the autocast: under a bf16 autocast torch
+hands cuDNN's RNN fp16 (measured on the H100, ``PERF.md`` §6, PR 8), whose
+gradients would go unscaled through fp16; JAX keeps these recurrences in
+fp32. ``gru_plain``/``lstm_plain`` are the loops in plain PyTorch, the
+reference the card's tests hold the library against.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -49,6 +57,42 @@ class Conv(nn.Conv2d):
         fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
         _torch_uniform_(self.weight, fan_in, generator)
         _torch_uniform_(self.bias, fan_in, generator)
+
+
+ACTIVATIONS = {
+    "ReLU": nn.ReLU,
+    "ELU": nn.ELU,
+    # jax.nn.gelu defaults to the tanh approximation
+    "GELU": lambda: nn.GELU(approximate="tanh"),
+    "Tanh": nn.Tanh,
+    "SiLU": nn.SiLU,
+}
+
+
+def get_activation(name: str) -> nn.Module:
+    """A module of the activation ``name`` (``hulc2_tpu/models/layers.py:87``)."""
+    try:
+        return ACTIVATIONS[name]()
+    except KeyError:
+        raise KeyError(f"unknown activation {name!r}; known: {sorted(ACTIVATIONS)}") from None
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps) over the last dim (``hulc2_tpu/models/vision.py:36``)."""
+    return x / x.norm(dim=-1, keepdim=True).clamp(min=eps)
+
+
+class MLP(nn.Sequential):
+    """Dense layers with the activation between them, not after the last
+    (``layers.py:97``); indices 0, 2, ... are the linears."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], activation: str = "ReLU"):
+        layers = []
+        for i, h in enumerate(hidden):
+            layers.append(Dense(in_features if i == 0 else hidden[i - 1], h))
+            if i < len(hidden) - 1:
+                layers.append(get_activation(activation))
+        super().__init__(*layers)
 
 
 def dropout(x: torch.Tensor, p: float, deterministic: bool,
@@ -156,3 +200,100 @@ class ReluRNN(nn.Module):
             x = torch.stack(outs, dim=1)
             h_last.append(h)
         return x, torch.stack(h_last)
+
+
+def _init_rnn_(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's RNN init, U(+-1/sqrt(H)) for every weight and bias, drawn from
+    ``generator`` in parameter order."""
+    for p in module.parameters(recurse=False):
+        _torch_uniform_(p, module.hidden_size, generator)
+
+
+class _Fp32Recurrence:
+    """The library's recurrence in fp32, outside any autocast; outputs and
+    states come back in fp32."""
+
+    init_weights = _init_rnn_
+
+    def forward(self, x: torch.Tensor, hx=None):
+        with torch.autocast(device_type=x.device.type, enabled=False):
+            if hx is not None:
+                hx = tuple(h.float() for h in hx) if isinstance(hx, tuple) else hx.float()
+            return super().forward(x.float(), hx)
+
+
+class GRU(_Fp32Recurrence, nn.GRU):
+    """torch nn.GRU(batch_first=True): gates (r, z, n), the n-gate
+    ``tanh(x_n + r * (h W_hn + b_hn))`` (``layers.py:240``)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int):
+        super().__init__(input_size, hidden_size, num_layers, batch_first=True)
+
+
+class LSTM(_Fp32Recurrence, nn.LSTM):
+    """torch nn.LSTM(batch_first=True): gates (i, f, g, o); the state is an
+    (h, c) pair of (L * directions, B, H) (``layers.py:272``)."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 bidirectional: bool = False):
+        super().__init__(input_size, hidden_size, num_layers, batch_first=True,
+                         bidirectional=bidirectional)
+
+
+def _layer_weights(rnn: nn.RNNBase, name: str):
+    return tuple(getattr(rnn, f"{w}_{name}") for w in ("weight_ih", "weight_hh", "bias_ih",
+                                                       "bias_hh"))
+
+
+def _scan_plain(rnn: nn.RNNBase, x: torch.Tensor, state0, cell: Callable):
+    """The stacked, optionally bidirectional recurrence of ``rnn`` as a loop:
+    each layer's input projection one GEMM over all steps, then the cell per
+    step. ``state0`` is a tuple of (L * D, B, H) tensors or None."""
+    d = 2 if rnn.bidirectional else 1
+    n_state = 2 if isinstance(rnn, nn.LSTM) else 1
+    finals = []
+    for layer in range(rnn.num_layers):
+        outs = []
+        for k in range(d):
+            w_ih, w_hh, b_ih, b_hh = _layer_weights(rnn, f"l{layer}" + ("_reverse" if k else ""))
+            seq = x.flip(1) if k else x
+            proj = F.linear(seq, w_ih, b_ih)
+            if state0 is None:
+                state = tuple(x.new_zeros(x.shape[0], rnn.hidden_size) for _ in range(n_state))
+            else:
+                state = tuple(s[layer * d + k] for s in state0)
+            ys = []
+            for t in range(seq.shape[1]):
+                state = cell(proj[:, t], F.linear(state[0], w_hh, b_hh), state)
+                ys.append(state[0])
+            y = torch.stack(ys, dim=1)
+            outs.append(y.flip(1) if k else y)
+            finals.append(state)
+        x = torch.cat(outs, dim=-1)
+    return x, tuple(torch.stack([f[i] for f in finals]) for i in range(n_state))
+
+
+def _gru_cell(xp, hp, state):
+    xr, xz, xn = xp.chunk(3, dim=-1)
+    hr, hz, hn = hp.chunk(3, dim=-1)
+    r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return ((1 - z) * n + z * state[0],)
+
+
+def _lstm_cell(xp, hp, state):
+    i, f, g, o = (xp + hp).chunk(4, dim=-1)
+    c = torch.sigmoid(f) * state[1] + torch.sigmoid(i) * torch.tanh(g)
+    return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def gru_plain(rnn: nn.GRU, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
+    """``rnn(x, h0)`` as a plain loop -> (outputs, h_n)."""
+    out, (h,) = _scan_plain(rnn, x, None if h0 is None else (h0,), _gru_cell)
+    return out, h
+
+
+def lstm_plain(rnn: nn.LSTM, x: torch.Tensor,
+               state0: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """``rnn(x, (h0, c0))`` as a plain loop -> (outputs, (h_n, c_n))."""
+    return _scan_plain(rnn, x, state0, _lstm_cell)

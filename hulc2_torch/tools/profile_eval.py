@@ -76,7 +76,7 @@ class EvalDispatch:
         dm = cfg["datamodule"]
         sizes = camera_sizes(dm["transforms"])
         self.model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
-                                  seed=cfg["seed"]).to(device).eval()
+                                  static_hw=sizes["rgb_static"], seed=cfg["seed"]).to(device).eval()
         bf16 = device.type == "cuda" and self.model.compute_dtype == torch.bfloat16
         tf = make_batch_transform(dm["observation_space"], dm["proprioception_dims"],
                                   dm["transforms"], dtype=torch.bfloat16 if bf16 else torch.float32,

@@ -3,9 +3,10 @@
 Train step (``:24-88``): concatenate the raw uint8 vis and lang windows, run
 the transform (one shift_normalize launch per RGB camera over all B*S
 frames), the model forward under bf16 autocast, the loss with the CLIP and
-aux betas, backward through autograd, and one Adam update. Returns the
-metrics, ``loss`` and ``grad_norm`` included, as detached tensors on the
-device.
+aux betas, backward through autograd, the gradients clipped by their global
+norm where the config asks for it, and one optimizer update at the
+schedule's learning rate. Returns the metrics, ``loss`` and ``grad_norm``
+(before clipping, as in JAX) included, as detached tensors on the device.
 
 Rollout steps (``:146``, ``:178``): one call per env step for a batch of envs,
 under ``torch.inference_mode()``: [render the frames from the env states,]
@@ -21,18 +22,25 @@ import torch
 
 from hulc2_torch.data.device_transforms import LANG_KEYS
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
+from hulc2_torch.train.optim import clip_gradients_
 from hulc2_torch.utils.device import resolve_device
 
 
 def aux_betas_from_loss_cfg(loss_cfg: dict) -> Dict[str, float]:
-    """Metric name -> beta, for the aux losses the ported model emits (the
-    task CE; the JAX trainer's other aux betas have no metric here)."""
-    return {"lang_task_loss": loss_cfg.get("lang_task_auxiliary_loss_beta", 1.0)}
+    """Metric name -> beta of the aux losses (``hulc2_tpu/train/trainer.py:130-134``);
+    a metric the model does not emit adds nothing."""
+    return {
+        "proprio_loss": loss_cfg.get("state_recon_beta", 0.5),
+        "lang_pred_loss": loss_cfg.get("bc_z_auxiliary_loss_beta", 1.0),
+        "lang_contrastive_loss": loss_cfg.get("mia_auxiliary_loss_beta", 1.0),
+        "lang_task_loss": loss_cfg.get("lang_task_auxiliary_loss_beta", 1.0),
+    }
 
 
 def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: Callable,
                     clip_loss_beta: float = 3.0, aux_betas: Optional[Dict[str, float]] = None,
-                    device=None) -> Callable:
+                    device=None, scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
+                    gradient_clip_norm: Optional[float] = None) -> Callable:
     """fn(raw_batch, generator, kl_beta, offsets=None, gumbel=None) -> metrics.
 
     ``raw_batch`` is {"vis": window dict, "lang": window dict}, or one batch
@@ -49,6 +57,10 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
         raise ValueError(f"model is on {param_device}, the step on {device}")
     use_autocast = device.type == "cuda" and getattr(model, "compute_dtype", None) == torch.bfloat16
     aux_betas = dict(aux_betas or {})
+    params = list(model.parameters())
+    # optax decays every parameter, those without a gradient in this graph
+    # (GCBC's plan heads) too; torch skips a parameter whose .grad is None
+    zero_fill = any(g.get("weight_decay", 0.0) for g in optimizer.param_groups)
 
     def step(raw_batch: Dict, generator: torch.Generator,
              kl_beta: float, offsets: Optional[Dict[str, torch.Tensor]] = None,
@@ -76,10 +88,18 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
         metrics["loss"] = loss
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if zero_fill:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params if p.grad is not None]
         metrics["grad_norm"] = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        if gradient_clip_norm:
+            clip_gradients_(grads, metrics["grad_norm"], gradient_clip_norm)
         optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step

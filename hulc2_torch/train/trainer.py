@@ -3,10 +3,12 @@
 
 An explicit loop around the port's train and val steps, with
 
-- auto-resume from the newest checkpoint in the run dir: model, Adam state
-  and step; the run goes on at epoch ``step // epoch length``, where an
+- auto-resume from the newest checkpoint in the run dir: model, optimizer
+  and learning-rate schedule state and step; the run goes on at epoch ``step // epoch length``, where an
   epoch is ``steps_per_epoch`` steps or ``trainer.limit_train_batches``;
-- the KL beta of each epoch from the KL schedule;
+- the KL beta of each epoch from the KL schedule; the learning rate of each
+  update from ``model.lr_scheduler`` over ``steps_per_epoch x
+  training.max_epochs`` estimated updates, logged as ``lr``;
 - a checkpoint at the next step edge after SIGTERM or SIGUSR1 (the
   timeout-and-resubmit contract of a cluster scheduler), validation skipped;
 - per-epoch validation (``trainer.limit_val_batches``) and a checkpoint
@@ -46,7 +48,7 @@ from hulc2_torch.data.loader import DevicePrefetcher, to_device
 from hulc2_torch.models.build import build_policy
 from hulc2_torch.models.hulc2 import Hulc2
 from hulc2_torch.train.kl_schedule import make_kl_schedule
-from hulc2_torch.train.optim import make_optimizer
+from hulc2_torch.train.optim import make_optimizer, make_scheduler, schedule_value
 from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step, make_val_step
 from hulc2_torch.utils.device import resolve_device, set_precision_flags
 
@@ -87,9 +89,15 @@ class Trainer:
         self.seed = int(cfg["training"].get("seed", 42))
         sizes = camera_sizes(cfg["datamodule"]["transforms"])
         self.model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
-                                  seed=self.seed).to(self.device)
-        self.optimizer = make_optimizer(self.model.parameters(), cfg["model"]["optimizer"],
-                                        cfg["model"].get("lr_scheduler"))
+                                  static_hw=sizes["rgb_static"], seed=self.seed).to(self.device)
+        opt_cfg = cfg["model"]["optimizer"]
+        self.optimizer = make_optimizer(self.model.parameters(), opt_cfg)
+        # the schedule's length as the JAX trainer estimates it (trainer.py:64-68):
+        # the config's max_epochs, whatever the run is cut to
+        self.estimated_total = (datamodule.steps_per_epoch() * int(cfg["training"]["max_epochs"])
+                                if datamodule is not None else 100_000)
+        self.scheduler = make_scheduler(self.optimizer, opt_cfg, cfg["model"].get("lr_scheduler"),
+                                        self.estimated_total)
         callbacks = cfg.get("callbacks") or {}
         self.kl_schedule = make_kl_schedule(
             callbacks.get("kl_schedule") or {"kind": "constant", "kl_beta": cfg["loss"]["kl_beta"]})
@@ -122,7 +130,10 @@ class Trainer:
         optimizer, with the training split's transform."""
         return make_train_step(self.model, self.optimizer, self._transform(True),
                                self.cfg["loss"]["clip_auxiliary_loss_beta"],
-                               aux_betas_from_loss_cfg(self.cfg["loss"]), device=self.device)
+                               aux_betas_from_loss_cfg(self.cfg["loss"]), device=self.device,
+                               scheduler=self.scheduler,
+                               gradient_clip_norm=self.cfg["model"]["optimizer"].get(
+                                   "gradient_clip_norm"))
 
     def fit(self, max_epochs: Optional[int] = None, max_steps: Optional[int] = None) -> FitResult:
         cfg, tcfg = self.cfg, self.cfg.get("trainer") or {}
@@ -144,6 +155,8 @@ class Trainer:
         if restored is not None:
             self.model.load_state_dict(restored["model"])
             self.optimizer.load_state_dict(restored["optimizer"])
+            if restored.get("scheduler") is not None:
+                self.scheduler.load_state_dict(restored["scheduler"])
             step = resumed_from = restored["step"]
             logger.info("auto-resumed from step %d", step)
         result = FitResult(self.model, step, resumed_from)
@@ -189,7 +202,10 @@ class Trainer:
                         result.step_ms.append(1e3 * (now - t_log) / since_log)
                         result.wait_ms.append(1e3 * (it.wait_s - wait_log) / since_log)
                         line = {**dict(zip(names, values)), "step_ms": result.step_ms[-1],
-                                "prefetch_wait_ms": result.wait_ms[-1]}
+                                "prefetch_wait_ms": result.wait_ms[-1],
+                                "lr": schedule_value(cfg["model"]["optimizer"],
+                                                     cfg["model"].get("lr_scheduler"), step,
+                                                     self.estimated_total)}
                         result.history.append(mlog.log(line, step, prefix="train/"))
                         t_log, wait_log, since_log = now, it.wait_s, 0
                     if (self._preempted or (max_steps and total_steps >= max_steps)
@@ -209,7 +225,7 @@ class Trainer:
                 val_step, tcfg.get("limit_val_batches"))
             if val_metrics:
                 result.val_history.append(mlog.log(val_metrics, step, prefix="val/"))
-            ckpt.save(step, self.model, self.optimizer, val_metrics)
+            ckpt.save(step, self.model, self.optimizer, val_metrics, self.scheduler)
             result.step = step
             if self._preempted or (max_steps and total_steps >= max_steps):
                 logger.warning("stopping early (preempted=%s)", self._preempted)

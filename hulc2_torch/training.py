@@ -48,8 +48,9 @@ from hulc2_torch.data.datamodule import Hulc2DataModule
 from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
 from hulc2_torch.data.random_data import RandomWindowBatches
 from hulc2_torch.models.build import build_policy
+from hulc2_torch.models.clip_text import ClipTextTransformer
 from hulc2_torch.models.hulc2 import Hulc2
-from hulc2_torch.train.optim import make_optimizer
+from hulc2_torch.train.optim import make_optimizer, make_scheduler
 from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
 from hulc2_torch.train.trainer import FitResult, Trainer
 from hulc2_torch.utils.device import resolve_device, set_precision_flags
@@ -72,21 +73,24 @@ class SyntheticRun:
         seed = cfg["seed"]
         dm_cfg, model_cfg = cfg["datamodule"], cfg["model"]
         sizes = camera_sizes(dm_cfg["transforms"])
-        self.model = build_policy(model_cfg, gripper_hw=sizes["rgb_gripper"], seed=seed).to(device)
-        optimizer = make_optimizer(self.model.parameters(), model_cfg["optimizer"],
-                                   model_cfg.get("lr_scheduler"))
+        self.model = build_policy(model_cfg, gripper_hw=sizes["rgb_gripper"],
+                                  static_hw=sizes["rgb_static"], seed=seed).to(device)
+        opt_cfg = model_cfg["optimizer"]
+        optimizer = make_optimizer(self.model.parameters(), opt_cfg)
         bf16 = self.model.compute_dtype == torch.bfloat16 and device.type == "cuda"
         transform = make_batch_transform(dm_cfg["observation_space"],
                                          dm_cfg["proprioception_dims"], dm_cfg["transforms"],
                                          dtype=torch.bfloat16 if bf16 else torch.float32)
         self.train_step = make_train_step(
             self.model, optimizer, transform, cfg["loss"]["clip_auxiliary_loss_beta"],
-            aux_betas_from_loss_cfg(cfg["loss"]), device=device)
+            aux_betas_from_loss_cfg(cfg["loss"]), device=device,
+            scheduler=make_scheduler(optimizer, opt_cfg, model_cfg.get("lr_scheduler")),
+            gradient_clip_norm=opt_cfg.get("gradient_clip_norm"))
         self.data = RandomWindowBatches(
             dm_cfg["batch_size_vis"], dm_cfg["batch_size_lang"], dm_cfg["max_window_size"],
             sizes["rgb_static"], sizes["rgb_gripper"], dm_cfg["action_space"],
             int(model_cfg.get("lang_task_classes", 34)), seed=seed, device=device,
-            lang_dim=None if self.model.lang_net is not None
+            lang_dim=None if isinstance(self.model.lang_net, ClipTextTransformer)
             else model_cfg["language_goal"]["in_features"])
         self.generator = torch.Generator(device=device).manual_seed(seed + 1)
         self.kl_beta = cfg["loss"]["kl_beta"]

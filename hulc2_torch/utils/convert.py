@@ -11,7 +11,9 @@ are the reference's (``perceptual_encoder.rgb_static_encoder.conv_model.0``,
 - Conv kernel (kh, kw, in, out) -> (out, in, kh, kw); the stem kernels are
   stored space-to-depth packed, (2, 2, 16 C, out), and are unpacked to 8x8;
 - LayerNorm scale/bias -> weight/bias;
-- RNN w_ih/w_hh (in, H) -> weight_ih/weight_hh (H, in);
+- RNN, GRU and LSTM ``w_ih_l{n}[_reverse]``/``w_hh_...`` (in, G H) ->
+  ``weight_ih_l{n}[_reverse]``/``weight_hh_...`` (G H, in), the gates in
+  the same order (r, z, n and i, f, g, o are torch's);
 - CLIP's separate q/k/v kernels -> one packed ``in_proj_weight`` (3C, C).
 
 ``detector_flax_to_torch(variables, aff_cfg)`` does the same for the JAX
@@ -70,27 +72,37 @@ def conv(p: Mapping, stem: bool = False) -> SD:
 
 
 def vision_network(p: Mapping) -> SD:
-    return {
+    out = {
         **_prefixed("conv_model.0", conv(p["conv0"], stem=True)),
         **_prefixed("conv_model.2", conv(p["conv1"])),
         **_prefixed("conv_model.4", conv(p["conv2"])),
-        **_prefixed("fc1.0", linear(p["fc1"])),
-        **_prefixed("fc2", linear(p["fc2"])),
-        **_prefixed("ln", layer_norm(p["ln"])),
+        **vision_head(p),
     }
+    if "temperature" in p:  # the learnable spatial-softmax temperature
+        out["temperature"] = _f32(p["temperature"])
+    return out
+
+
+def vision_head(p: Mapping) -> SD:
+    return {**_prefixed("fc1.0", linear(p["fc1"])), **_prefixed("fc2", linear(p["fc2"])),
+            **_prefixed("ln", layer_norm(p["ln"]))}
+
+
+def conv_trunk(trunk: Mapping) -> SD:
+    """A trunk's ``conv{i}`` and ``fc`` -> ``conv_model.{2 i}`` and the
+    linear after the flatten (7 for nature_cnn and cnn_3_layers, 9 for
+    cnn_4_layers). Only the nature stem's 8x8 kernel is stored packed."""
+    n = sum(1 for k in trunk if k.startswith("conv"))
+    out: SD = {}
+    for i in range(n):
+        out.update(_prefixed(f"conv_model.{2 * i}", conv(trunk[f"conv{i}"], stem=i == 0)))
+    out.update(_prefixed(f"conv_model.{2 * n + 1}", linear(trunk["fc"])))
+    return out
 
 
 def vision_network_gripper(p: Mapping) -> SD:
-    trunk = p["trunk"]
-    return {
-        **_prefixed("conv_model.0", conv(trunk["conv0"], stem=True)),
-        **_prefixed("conv_model.2", conv(trunk["conv1"])),
-        **_prefixed("conv_model.4", conv(trunk["conv2"])),
-        **_prefixed("conv_model.7", linear(trunk["fc"])),
-        **_prefixed("fc1.0", linear(p["fc1"])),
-        **_prefixed("fc2", linear(p["fc2"])),
-        **_prefixed("ln", layer_norm(p["ln"])),
-    }
+    """``VisionNetworkGripper`` of any trunk, and ``VisionConv``."""
+    return {**conv_trunk(p["trunk"]), **vision_head(p)}
 
 
 def mha(p: Mapping) -> SD:
@@ -126,6 +138,34 @@ def plan_recognition_transformer(p: Mapping, num_layers: int) -> SD:
     for i in range(num_layers):
         out.update(_prefixed(f"transformer_encoder.layers.{i}",
                              transformer_encoder_layer(p[f"layer{i}"])))
+    for ln in ("pos_ln", "final_ln"):
+        if ln in p:
+            out.update(_prefixed(ln, layer_norm(p[ln])))
+    return out
+
+
+def rnn_weights(p: Mapping) -> SD:
+    """A stacked RNN/GRU/LSTM's ``{w,b}_{ih,hh}_l{n}[_reverse]`` -> torch's names."""
+    out: SD = {}
+    for name, v in p.items():
+        kind, rest = name[:4], name[4:]  # "w_ih", "_l0_reverse"
+        torch_kind = {"w_ih": "weight_ih", "w_hh": "weight_hh", "b_ih": "bias_ih",
+                      "b_hh": "bias_hh"}[kind]
+        out[torch_kind + rest] = _f32(v).T if kind.startswith("w") else _f32(v)
+    return out
+
+
+def plan_recognition(p: Mapping, pr_cfg: dict) -> SD:
+    kind = pr_cfg.get("kind", "transformers")
+    if kind == "transformers":
+        return plan_recognition_transformer(p, pr_cfg["num_layers"])
+    out = _prefixed("fc_state.0", linear(p["fc_state"]))
+    if kind == "bilstm":
+        out.update(_prefixed("bilstm", rnn_weights(p["bilstm"])))
+    else:
+        for name, sub in p.items():
+            if name.startswith(("fwd", "bwd")):
+                out.update(_prefixed(name, rnn_weights(sub)))
     return out
 
 
@@ -138,17 +178,23 @@ def goal_encoder(p: Mapping, has_dropout_front: bool) -> SD:
     return out
 
 
-def logistic_decoder(p: Mapping, num_layers: int) -> SD:
+def action_decoder(p: Mapping) -> SD:
+    """The logistic decoder (its gripper head only with a discrete gripper)
+    or the deterministic one, over a stacked RNN, GRU, LSTM or the MLP
+    (``fc{i}`` -> ``rnn.{2 i}``)."""
     rnn = p["rnn"]
-    out: SD = {}
-    for k in range(num_layers):
-        out[f"rnn.weight_ih_l{k}"] = _f32(rnn[f"w_ih_l{k}"]).T
-        out[f"rnn.weight_hh_l{k}"] = _f32(rnn[f"w_hh_l{k}"]).T
-        out[f"rnn.bias_ih_l{k}"] = _f32(rnn[f"b_ih_l{k}"])
-        out[f"rnn.bias_hh_l{k}"] = _f32(rnn[f"b_hh_l{k}"])
-    for head in ("prob_fc", "mean_fc", "log_scale_fc", "gripper_fc"):
-        out.update(_prefixed(head, linear(p[head])))
+    if "fc0" in rnn:
+        out = {f"rnn.{2 * i}.{k}": v for i in range(3) for k, v in linear(rnn[f"fc{i}"]).items()}
+    else:
+        out = _prefixed("rnn", rnn_weights(rnn))
+    for head in ("prob_fc", "mean_fc", "log_scale_fc", "gripper_fc", "actions"):
+        if head in p:
+            out.update(_prefixed(head, linear(p[head])))
     return out
+
+
+def two_layer(p: Mapping) -> SD:
+    return {**_prefixed("fc0", linear(p["fc0"])), **_prefixed("fc1", linear(p["fc1"]))}
 
 
 def proj_vis_lang(p: Mapping) -> SD:
@@ -182,37 +228,41 @@ def clip_text(p: Mapping, layers: int) -> SD:
     return out
 
 
-def lang_task_head(p: Mapping) -> SD:
-    return {**_prefixed("fc0", linear(p["fc0"])), **_prefixed("fc1", linear(p["fc1"]))}
-
-
 def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch.Tensor]:
-    """The JAX ``Hulc2`` flax variables ({"params": ...}) of the ported
-    family -> the port's ``state_dict``: the flagship's, or a
-    ``cfg_low_level`` policy's, which has no ``lang_net`` and no
-    ``lang_task_head`` and whose goal MLP takes the 384-d embeddings."""
+    """The JAX ``Hulc2`` flax variables ({"params": ...}) -> the port's
+    ``state_dict``, for every model ``models/build.py`` builds: the encoders
+    and trunks, the transformer, BiLSTM or BiRNN posterior, the decoder and
+    its rnn, and whichever of the language network (CLIP text tower or
+    ``lang_mlp``), the CLIP loss's projections and temperature, and the
+    state, BC-Z, MIA and task heads the model has."""
     p = params["params"]
     pe = p["perceptual_encoder"]
+    static = pe["rgb_static"]
     sd: SD = {
-        **_prefixed("perceptual_encoder.rgb_static_encoder", vision_network(pe["rgb_static"])),
+        **_prefixed("perceptual_encoder.rgb_static_encoder",
+                    vision_network_gripper(static) if "trunk" in static else vision_network(static)),
         **_prefixed("perceptual_encoder.rgb_gripper_encoder",
                     vision_network_gripper(pe["rgb_gripper"])),
         **_prefixed("plan_proposal", plan_proposal(p["plan_proposal"])),
-        **_prefixed("plan_recognition", plan_recognition_transformer(
-            p["plan_recognition"], model_cfg["plan_recognition"]["num_layers"])),
+        **_prefixed("plan_recognition", plan_recognition(p["plan_recognition"],
+                                                         model_cfg["plan_recognition"])),
         **_prefixed("visual_goal", goal_encoder(p["visual_goal"], has_dropout_front=False)),
         **_prefixed("language_goal", goal_encoder(p["language_goal"], has_dropout_front=True)),
-        **_prefixed("action_decoder", logistic_decoder(
-            p["action_decoder"], model_cfg["action_decoder"]["num_layers"])),
-        **_prefixed("proj_vis_lang", proj_vis_lang(p["proj_vis_lang"])),
-        "logit_scale": _f32(p["logit_scale"]).reshape(()),
+        **_prefixed("action_decoder", action_decoder(p["action_decoder"])),
     }
-    # a policy without a text tower (language_encoder: none) or task head has none
+    if "proj_vis_lang" in p:  # with the CLIP aux loss
+        sd.update(_prefixed("proj_vis_lang", proj_vis_lang(p["proj_vis_lang"])))
+        sd["logit_scale"] = _f32(p["logit_scale"]).reshape(())
     if "lang_net" in p:
-        sd.update(_prefixed("lang_net", clip_text(p["lang_net"],
-                                                  model_cfg["language_encoder"]["layers"])))
-    if "lang_task_head" in p:
-        sd.update(_prefixed("lang_task_head", lang_task_head(p["lang_task_head"])))
+        if model_cfg["language_encoder"]["_name_"] == "lang_mlp":
+            sd.update({f"lang_net.mlp.{2 * i + 1}.{k}": v for i in range(3)
+                       for k, v in linear(p["lang_net"][f"fc{i}"]).items()})
+        else:
+            sd.update(_prefixed("lang_net", clip_text(p["lang_net"],
+                                                      model_cfg["language_encoder"]["layers"])))
+    for head in ("lang_task_head", "state_decoder", "bcz_lang_decoder", "mia_discriminator"):
+        if head in p:
+            sd.update(_prefixed(head, two_layer(p[head])))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 

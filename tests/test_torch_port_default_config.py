@@ -223,8 +223,12 @@ def test_low_level_forward_matches_jax(monkeypatch):
     assert set(got) == set(want) and "lang_task_loss" not in got
     for k, w in want.items():
         np.testing.assert_allclose(float(got[k]), float(w), rtol=1e-4, atol=1e-6, err_msg=k)
-    with pytest.raises(NotImplementedError, match="lang_mlp"):
-        build_policy(cfg_lib.compose("cfg_low_level", ["model/language_encoder=mlp"])["model"])
+    # lang_mlp, once refused here, builds its trainable MLP over the 384-d embeddings
+    mlp = build_policy(cfg_lib.compose("cfg_low_level", ["model/language_encoder=mlp"])["model"])
+    assert mlp.lang_net.mlp[1].in_features == EMB_DIM
+    with pytest.raises(NotImplementedError, match="r3m"):
+        build_policy(cfg_lib.compose("cfg_low_level",
+                                     ["model/perceptual_encoder/rgb_static=r3m"])["model"])
 
 
 def test_three_low_level_train_steps_track_jax(monkeypatch, low_dir):

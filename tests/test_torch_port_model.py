@@ -113,7 +113,7 @@ def test_logistic_decoder_forward_matches_jax():
     params = _flax_params(jmod, *map(jnp.asarray, (plan, emb, goal)))
     want = jmod.apply(params, *map(jnp.asarray, (plan, emb, goal)))
     tmod = _load(decoders.LogisticPolicyDecoder(20 + 64 + 8, hidden_size=32),
-                 convert.logistic_decoder(params["params"], 2))
+                 convert.action_decoder(params["params"]))
     with torch.no_grad():
         got = tmod(*map(torch.from_numpy, (plan, emb, goal)))
     for name in ("logit_probs", "log_scales", "means", "gripper_logits", "hidden"):
@@ -201,6 +201,7 @@ def test_small_overrides_apply():
 
 def test_build_policy_refuses_unported_options():
     cfg = flagship_config()
-    cfg["model"]["distribution"] = {"dist": "continuous", "plan_features": 256}
-    with pytest.raises(NotImplementedError):
+    cfg["model"]["perceptual_encoder"]["depth_static"] = {"_name_": "vision_network",
+                                                          "visual_features": 64}
+    with pytest.raises(NotImplementedError, match="depth"):
         build_policy(cfg["model"])
