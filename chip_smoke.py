@@ -123,7 +123,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
    AdamW, the cosine warm-up), built from registry options and dotted
    overrides only; its eval takes the (h, c) carry through ``policy_step``,
    the per-env reset and the pipelined evaluator;
-30. the kernels line, the card line, and the final JSON line.
+30. (x) the observation space, from here on: for a small fp32 model
+   of each new option (a depth static encoder, the static camera only with
+   the identity proprio encoder, robot_scene's robot_obs ++ scene_obs, frame
+   skipping random and diff, vision_only and lang_only), two train steps on
+   the card and on the CPU on one batch of the option's own training loader
+   from (r), same weights, transform draws and plan noise: losses within
+   rel 1e-5;
+31. (y) ``cfg_low_level`` with ``rgbd_both``'s depth_static encoder (no
+   gripper depth: the fake env renders none) from (r) at full width,
+   OBS_STEPS steps and OBS_VAL val batches: the depth encoder's parameters
+   moved, shift_normalize 2 x train steps + 4 x val steps; then its eval as
+   in (t), depth_static rendered in the fused step, twice per dispatch;
+32. (z) the static camera only with robot_scene proprio (scene_obs) and
+   random frame skipping, the same way: shift_normalize 1 x train steps +
+   2 x val steps, once per dispatch, every agent holding the training
+   split's statistics;
+33. (aa) every transform preset's train and val pipelines card against CPU
+   at 200/84 and at 96/64 px (real resizes), same draws, within 1e-5 of
+   scale, every uint8 kernel run launched; the kernel at the other presets'
+   static shapes (200 px pad 0, 150x200 pad 6, 224 px pad 10 with CLIP's
+   statistics) bit for bit with its device time and bound; then
+   ``datamodule/datasets=vision_only`` and ``=lang_only``, SINGLE_STEPS
+   steps each from (r), 2 launches a train and a val step;
+34. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -212,6 +235,33 @@ OPTION_CASES = {
     "sgd_linear_warmup_clip": ("cfg_low_level", ["model/optimizer=sgd",
                                                  "model/lr_scheduler=linear_warmup",
                                                  "model.optimizer.gradient_clip_norm=1.0"]),
+}
+# the observation space: on (r)'s dataset (float16 depth_static and scene_obs
+# in every frame), a depth run and a static-camera run with proprio,
+# scene_obs and frame skipping, OBS_STEPS steps and OBS_VAL val batches each,
+# scored like (t); then each single-modality config for SINGLE_STEPS steps
+DEPTH_RUN = BUILD / "chip_smoke_depth"
+SCENE_RUN = BUILD / "chip_smoke_scene"
+VISION_ONLY_RUN = BUILD / "chip_smoke_vision_only"
+LANG_ONLY_RUN = BUILD / "chip_smoke_lang_only"
+OBS_STEPS, OBS_VAL, SINGLE_STEPS = 10, 2, 5
+DEPTH = ["model/perceptual_encoder=rgbd_both", "model.perceptual_encoder.depth_gripper=null",
+         'datamodule.observation_space.depth_obs=["depth_static"]']
+SCENE = ["model/perceptual_encoder=static_rgb",
+         "datamodule/observation_space=lang_rgb_static_robot_scene_abs_act",
+         "datamodule/proprioception_dims=robot_scene",
+         "model.perceptual_encoder.proprio.n_state_obs=54"]
+# frame skipping cut to LOW_SMALL's 4-frame windows (the posterior's positions end there)
+SKIP_SMALL = ["datamodule.frame_skip.effective_min_ws=2", "datamodule.frame_skip.effective_max_ws=3"]
+OBS_CASES = {
+    "depth_static": DEPTH,
+    "static_proprio": ["model/perceptual_encoder=static_rgb",
+                       "datamodule/observation_space=lang_rgb_static_rel_act"],
+    "robot_scene": SCENE,
+    "frame_skip_random": ["datamodule/frame_skip=random"] + SKIP_SMALL,
+    "frame_skip_diff": ["datamodule/frame_skip=diff"] + SKIP_SMALL,
+    "vision_only": ["datamodule/datasets=vision_only"],
+    "lang_only": ["datamodule/datasets=lang_only"],
 }
 LOW_SMALL = [
     "model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",
@@ -334,8 +384,8 @@ def phase_reference(dev: torch.device) -> None:
         losses[device.type] = []
         for raw, (offsets, gumbel) in zip(batches, draws):
             raw_d = {m: {k: v.to(device) for k, v in w.items()} for m, w in raw.items()}
-            off_d = {k: v.to(device) for k, v in offsets.items()}
-            metrics = step(raw_d, None, 0.01, off_d, gumbel.to(device))
+            shifts = {k: {1: v.to(device)} for k, v in offsets.items()}  # the shift is op 1
+            metrics = step(raw_d, None, 0.01, gumbel=gumbel.to(device), draws=shifts)
             losses[device.type].append(metrics["loss"].item())
     print(f"[reference] small fp32 policy, 2 train steps: cpu {losses['cpu']} cuda {losses['cuda']}",
           flush=True)
@@ -373,7 +423,7 @@ def phase_bf16_vs_fp32(dev: torch.device) -> float:
     for dtype in (torch.float32, torch.bfloat16):
         tf = make_batch_transform(dm["observation_space"], dm["proprioception_dims"],
                                   dm["transforms"], dtype=dtype)
-        batch = tf(fused, None, offsets)
+        batch = tf(fused, None, {k: {1: v} for k, v in offsets.items()})  # the shift is op 1
         batch.update({k: raw["lang"][k] for k in ("lang", "use_for_aux_lang_loss", "lang_task_id")})
         with torch.no_grad(), torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
                                              enabled=dtype == torch.bfloat16):
@@ -977,10 +1027,10 @@ def eval_diag(log_dir: Path, what: str) -> dict:
     return json.loads((log_dir / "eval_diagnostics.json").read_text())
 
 
-def check_launches(launches: dict, n: int, what: str) -> None:
-    if launches["shift_normalize"] != 2 * n:
+def check_launches(launches: dict, n: int, what: str, per_dispatch: int = 2) -> None:
+    if launches["shift_normalize"] != per_dispatch * n:
         fail(f"{what}: shift_normalize launched {launches['shift_normalize']} times, expected "
-             f"2 x {n}")
+             f"{per_dispatch} x {n}")
 
 
 def phase_paraphrase(dev: torch.device, card: str) -> dict:
@@ -1252,8 +1302,9 @@ def phase_low_reference(dev: torch.device) -> None:
                                cfg["loss"]["clip_auxiliary_loss_beta"],
                                aux_betas_from_loss_cfg(cfg["loss"]), device=device)
         losses[device.type] = [step({k: v.to(device) for k, v in raw.items()}, None, 0.01,
-                                    {k: v.to(device) for k, v in off.items()},
-                                    gumbel.to(device))["loss"].item() for off, gumbel in draws]
+                                    gumbel=gumbel.to(device),  # the shift is op 1
+                                    draws={k: {1: v.to(device)} for k, v in off.items()}
+                                    )["loss"].item() for off, gumbel in draws]
     print(f"[low_reference] small fp32 cfg_low_level policy (no text tower, no task head), "
           f"2 train steps on a {tuple(raw['rgb_static'].shape)} host-loader batch with 384-d "
           f"embeddings: cpu {losses['cpu']} cuda {losses['cuda']} (rel tol 1e-3)", flush=True)
@@ -1264,11 +1315,14 @@ def phase_low_reference(dev: torch.device) -> None:
 
 def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
                     run_dir: Path = LOW_RUN, root: str = "cfg_low_level", overrides=(),
-                    steps: int = LOW_STEPS, val: int = LOW_VAL) -> dict:
+                    steps: int = LOW_STEPS, val: int = LOW_VAL, per_step: int = 2,
+                    per_val: int = 4) -> dict:
     """(s) ``python -m hulc2_torch.training --config-name cfg_low_level`` from
-    (r)'s dataset at full width through the host loader (and (v), (w): the
-    same entry point for another root and overrides); returns the launch
-    counts of the run, its median step and loader wait."""
+    (r)'s dataset at full width through the host loader (and (v), (w), (y),
+    (z), (aa): the same entry point for another root and overrides, whose
+    train and val steps launch the kernel ``per_step`` and ``per_val``
+    times); returns the launch counts of the run, its median step and
+    loader wait."""
     from hulc2_torch import kernels, training
     from hulc2_torch.data import native_loader
 
@@ -1308,7 +1362,7 @@ def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
         fail(f"the {what} run used a device store or built a language network")
     if not reads:
         fail(f"the {what} run read no frame through the native loader")
-    want = 2 * steps + 4 * val
+    want = per_step * steps + per_val * val
     if launches["shift_normalize"] != want:
         fail(f"shift_normalize launched {launches['shift_normalize']} times for {steps} train "
              f"and {val} val steps of {what}, expected {want}")
@@ -1316,10 +1370,15 @@ def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
     wait_ms = statistics.median(result.wait_ms[WARM_STEPS:])
     cfg = json.loads((run_dir / "config.json").read_text())
     dm = cfg["datamodule"]
-    windows = dm["batch_size_vis"] + dm["batch_size_lang"]
-    batch_bytes = windows * dm["max_window_size"] * (200 * 200 * 3 + 84 * 84 * 3)
+    obs = dm["observation_space"]
+    mods = [m for m in ("vis", "lang") if (dm.get("datasets") or {}).get(m, True)]
+    windows = sum(dm[f"batch_size_{m}"] for m in mods)
+    frame_bytes = {"rgb_static": 200 * 200 * 3, "rgb_gripper": 84 * 84 * 3,
+                   "depth_static": 200 * 200 * 2}  # depth stored float16
+    frames = (dm["frame_skip"] or {}).get("effective_max_ws", dm["max_window_size"])
+    batch_bytes = windows * frames * sum(frame_bytes[k] for k in obs["rgb_obs"] + obs["depth_obs"])
     print(f"[{tag}] {what} at full width, batch {windows} windows x "
-          f"{dm['max_window_size']} frames ({batch_bytes} bytes of images a batch, assembled on "
+          f"{frames} frames ({batch_bytes} bytes of images a batch, assembled on "
           f"the host): losses " + ", ".join(f"{line['train/loss']:.4f}" for line in result.history),
           flush=True)
     print(f"[{tag}] lr " + ", ".join(f"{line['train/lr']:.3g}" for line in result.history)
@@ -1332,33 +1391,62 @@ def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
           f"{wait_ms:.2f} ms ({100 * wait_ms / steady_ms:.1f}%); {batch_bytes / steady_ms / 1e6:.3f} GB/s "
           f"of images fed; native loader used: {len(reads)} calls, {sum(reads)} frame reads; "
           f"launches {launches}; on {card}", flush=True)
-    return {"launches": launches, "step_ms": steady_ms, "wait_ms": wait_ms, "model": result.model}
+    return {"launches": launches, "step_ms": steady_ms, "wait_ms": wait_ms, "model": result.model,
+            "cfg": cfg}
 
 
 def phase_low_eval(dev: torch.device, card: str, tag: str = "low_eval",
-                   run_dir: Path = LOW_RUN, steps: int = LOW_STEPS) -> dict:
+                   run_dir: Path = LOW_RUN, steps: int = LOW_STEPS, per_dispatch: int = 2) -> dict:
     """(t) ``evaluate_policy --train-dir`` (s)'s run with (r)'s goal table,
-    frames rendered at 200/84 on the card (and (v), (w): their runs);
-    returns the launch counts and env-steps/s."""
+    frames rendered at 200/84 on the card (and (v), (w), (y), (z): their
+    runs, whose dispatches launch the kernel ``per_dispatch`` times);
+    returns the launch counts, env-steps/s, the statistics each agent was
+    given and the frames its renderer returned (names and counts)."""
+    from hulc2_torch.agents import hulc2_agent
+    from hulc2_torch.envs import render_torch
     from hulc2_torch import kernels
     from hulc2_torch.evaluation import evaluate_policy
 
     log_dir = run_dir / "evaluation"
     shutil.rmtree(log_dir, ignore_errors=True)
+    stats, rendered = [], {}
+    agent_init, make_render = hulc2_agent.Hulc2Agent.__init__, render_torch.make_render_obs_fn
+
+    def recording_init(self, *args, **kw):
+        stats.append(kw.get("stats"))
+        agent_init(self, *args, **kw)
+
+    def recording_render(*args, **kw):
+        render = make_render(*args, **kw)
+
+        def call(*a):
+            out = render(*a)
+            for k in out:
+                rendered[k] = rendered.get(k, 0) + 1
+            return out
+
+        return call
+
+    hulc2_agent.Hulc2Agent.__init__ = recording_init
+    render_torch.make_render_obs_fn = recording_render
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    merged = evaluate_policy.main([
-        "--train-dir", str(run_dir), "--dataset-path", str(LOW_DATA), "--fake-env",
-        "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS),
-        "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN), "--device", "cuda"])
-    torch.cuda.synchronize(dev)
+    try:
+        merged = evaluate_policy.main([
+            "--train-dir", str(run_dir), "--dataset-path", str(LOW_DATA), "--fake-env",
+            "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS),
+            "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN), "--device", "cuda"])
+        torch.cuda.synchronize(dev)
+    finally:
+        hulc2_agent.Hulc2Agent.__init__ = agent_init
+        render_torch.make_render_obs_fn = make_render
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     diag = eval_diag(log_dir, f"{run_dir.name} evaluation")
     if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or \
             len({r["chain"] for r in diag["subtask_records"]}) != DISK_CHAINS:
         fail(f"unexpected {run_dir.name} results: {merged['latest']}")
-    check_launches(launches, diag["dispatches"], f"{run_dir.name} eval")
+    check_launches(launches, diag["dispatches"], f"{run_dir.name} eval", per_dispatch)
     rate = diag["total_env_steps"] / diag["wall_clock_s"]
     print(f"[{tag}] step {steps} of {run_dir.name}, goals from {LOW_DATA.name}'s "
           f"embeddings.npy, {DISK_CHAINS} chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts, "
@@ -1368,8 +1456,9 @@ def phase_low_eval(dev: torch.device, card: str, tag: str = "low_eval",
           f"({1e3 * diag['wall_clock_s'] / diag['dispatches']:.2f} ms each); whole entry point "
           f"{wall_s:.1f} s; launches {launches}; on {card}", flush=True)
     print(f"[{tag}] host time, summed over cohorts: " + ", ".join(
-        f"{k} {v:.3f} s" for k, v in diag["timings_s"].items()), flush=True)
-    return {"launches": launches, "rate": rate}
+        f"{k} {v:.3f} s" for k, v in diag["timings_s"].items())
+        + f"; frames the renderer returned: {rendered}", flush=True)
+    return {"launches": launches, "rate": rate, "stats": stats, "rendered": rendered}
 
 
 def phase_options_reference(dev: torch.device) -> None:
@@ -1419,8 +1508,9 @@ def phase_options_reference(dev: torch.device) -> None:
                 scheduler=make_scheduler(opt, mc["optimizer"], mc.get("lr_scheduler"), 20),
                 gradient_clip_norm=mc["optimizer"].get("gradient_clip_norm"))
             losses[device.type] = [step({k: v.to(device) for k, v in raw.items()}, None, 0.01,
-                                        {k: v.to(device) for k, v in off.items()},
-                                        noise.to(device))["loss"].item() for off, noise in draws]
+                                        gumbel=noise.to(device),  # the shift is op 1
+                                        draws={k: {1: v.to(device)} for k, v in off.items()}
+                                        )["loss"].item() for off, noise in draws]
         print(f"[options_reference] {name} ({root} {' '.join(overrides)}): cpu {losses['cpu']} "
               f"cuda {losses['cuda']} (rel tol 1e-3)", flush=True)
         for a, c in zip(losses["cpu"], losses["cuda"]):
@@ -1429,6 +1519,267 @@ def phase_options_reference(dev: torch.device) -> None:
     print(f"[options_reference] {len(OPTION_CASES)} options on a "
           f"{tuple(raw['rgb_static'].shape)} host-loader batch in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def seeded_draws(pipelines: dict, raw: dict, seed: int) -> dict:
+    """Draws on the CPU for every op of ``pipelines`` that draws, at the
+    shapes its ops see in the (B, S, H, W[, C]) windows of ``raw``
+    (``device_transforms.op_draws``); both devices get the same ones."""
+    from hulc2_torch.data.device_transforms import op_draws
+
+    g = torch.Generator().manual_seed(seed)
+    return {key: op_draws(ops, (raw[key].shape[0] * raw[key].shape[1], *raw[key].shape[2:4],
+                                1 if raw[key].dim() == 4 else raw[key].shape[-1]), g, "cpu")
+            for key, ops in pipelines.items() if key in raw}
+
+
+def to_dev(batch: dict, device) -> dict:
+    return {k: to_dev(v, device) if isinstance(v, dict) else v.to(device) for k, v in batch.items()}
+
+
+def phase_obs_reference(dev: torch.device) -> None:
+    """(x) Two fp32 train steps of a small model of each new observation
+    option on the card and on the CPU, same weights, one fixed batch of the
+    option's own training loader from (r) (fused, or one modality's;
+    windows skipped to the effective length), same transform draws (crop
+    offsets, the depth noise) and plan noise; the card runs the kernel, the
+    CPU its plain version."""
+    import hulc2_torch.configs  # noqa: F401  (registers the config groups)
+    from hulc2_torch.core.config import compose
+    from hulc2_torch.data.datamodule import Hulc2DataModule
+    from hulc2_torch.data.device_transforms import TRANSFORM_PRESETS, make_batch_transform
+    from hulc2_torch.models.build import build_policy_for
+    from hulc2_torch.train.optim import make_optimizer
+    from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for i, (name, overrides) in enumerate(OBS_CASES.items()):
+        cfg = compose("cfg_low_level", LOW_SMALL + [f"datamodule.root_data_dir={LOW_DATA}"]
+                      + overrides)
+        dm_cfg, mc = cfg["datamodule"], cfg["model"]
+        dm = Hulc2DataModule(dm_cfg, seed=cfg["seed"], device="cpu")
+        dm.setup()
+        host = next(iter(dm.fused_train_iter()))
+        raw = ({m: {k: torch.from_numpy(v) for k, v in b.items()} for m, b in host.items()}
+               if "actions" not in host else {k: torch.from_numpy(v) for k, v in host.items()})
+        fused = raw if "actions" in raw else next(iter(raw.values()))
+        pipelines = TRANSFORM_PRESETS[dm_cfg["transforms"]]["train"]
+        rows = sum(v["actions"].shape[0] for v in raw.values()) if "actions" not in raw \
+            else raw["actions"].shape[0]
+        g = torch.Generator().manual_seed(60 + i)
+        steps = [(seeded_draws(pipelines, fused, 70 + i + k),
+                  -torch.log(-torch.log(torch.rand((rows, 32, 32), generator=g))))
+                 for k in range(2)]
+        losses = {}
+        for device in (torch.device("cpu"), dev):
+            model = build_policy_for(cfg, seed=5).to(device)
+            tf = make_batch_transform(dm_cfg["observation_space"], dm_cfg["proprioception_dims"],
+                                      dm_cfg["transforms"], stats=dm.stats["training"])
+            step = make_train_step(model, make_optimizer(model.parameters(), mc["optimizer"]), tf,
+                                   cfg["loss"]["clip_auxiliary_loss_beta"],
+                                   aux_betas_from_loss_cfg(cfg["loss"]), device=device)
+            losses[device.type] = [step(to_dev(raw, device), None, 0.01, gumbel=noise.to(device),
+                                        draws={k: {j: d.to(device) for j, d in v.items()}
+                                               for k, v in draws.items()})["loss"].item()
+                                   for draws, noise in steps]
+        rel = max(abs(a - c) / max(abs(a), 1e-12) for a, c in zip(losses["cpu"], losses["cuda"]))
+        worst = max(worst, rel)
+        shape = tuple(fused["rgb_static"].shape)
+        print(f"[obs_reference] {name} ({' '.join(overrides)}): batch {sorted(raw) if 'actions' not in raw else 'fused'} "
+              f"rgb_static {shape}: cpu {losses['cpu']} cuda {losses['cuda']} (largest relative "
+              f"difference {rel:.2e}; rel tol 1e-5)", flush=True)
+        for a, c in zip(losses["cpu"], losses["cuda"]):
+            if not (math.isfinite(a) and math.isclose(a, c, rel_tol=1e-5)):
+                fail(f"card and CPU losses of the {name} observation option disagree: {losses}")
+    print(f"[obs_reference] {len(OBS_CASES)} options in {time.perf_counter() - t0:.1f} s; "
+          f"largest relative loss difference {worst:.2e}", flush=True)
+
+
+def phase_depth_run(dev: torch.device, card: str) -> tuple:
+    """(y) ``cfg_low_level`` with the static depth camera from (r) at full
+    width, then its eval: the depth encoder's parameters moved, depth_static
+    rendered in the fused step, 2 launches a train step, 4 a val step and 2
+    a dispatch."""
+    from hulc2_torch.models.build import build_policy_for
+
+    train = phase_low_train(dev, card, "depth_train", DEPTH_RUN, "cfg_low_level", DEPTH,
+                            OBS_STEPS, OBS_VAL)
+    enc = train["model"].perceptual_encoder.depth_static_encoder
+    if enc is None or enc.conv_model[0].in_channels != 1:
+        fail("the depth run built no one-channel depth_static encoder")
+    init = build_policy_for(train["cfg"], seed=int(train["cfg"]["training"].get("seed", 42)))
+    moved = sum(not torch.equal(p.cpu(), q) for p, q in zip(
+        enc.parameters(), init.perceptual_encoder.depth_static_encoder.parameters()))
+    print(f"[depth_train] depth_static encoder: {moved} of "
+          f"{len(list(enc.parameters()))} parameter tensors moved", flush=True)
+    if moved == 0:
+        fail("the depth encoder's parameters did not move")
+    evaluation = phase_low_eval(dev, card, "depth_eval", DEPTH_RUN, OBS_STEPS)
+    if evaluation["rendered"].get("depth_static", 0) == 0:
+        fail("no depth_static was rendered in the depth run's fused steps")
+    del train["model"]
+    return train, evaluation
+
+
+def phase_scene_run(dev: torch.device, card: str) -> tuple:
+    """(z) The static camera only, with the identity proprio encoder over
+    robot_obs ++ scene_obs (robot_scene) and random frame skipping, from
+    (r) at full width, then its eval: one launch a train step, 2 a val step,
+    1 a dispatch; every agent holds the training split's statistics."""
+    import numpy as np
+
+    from hulc2_torch.data.statistics import load_statistics
+
+    train = phase_low_train(dev, card, "scene_train", SCENE_RUN, "cfg_low_level",
+                            SCENE + ["datamodule/frame_skip=random"], OBS_STEPS, OBS_VAL, 1, 2)
+    model = train["model"]
+    if model.perceptual_encoder.rgb_gripper_encoder is not None or \
+            model.visual_goal.mlp[0].in_features != 64 + 39:
+        fail("the scene run did not build a static-only policy over 39 proprio dims")
+    del train["model"], model
+    evaluation = phase_low_eval(dev, card, "scene_eval", SCENE_RUN, OBS_STEPS, per_dispatch=1)
+    want = load_statistics(LOW_DATA / "training")
+    if not evaluation["stats"] or not all(
+            s is not None and np.array_equal(s.robot_obs_mean, want.robot_obs_mean)
+            and np.array_equal(s.robot_obs_std, want.robot_obs_std) for s in evaluation["stats"]):
+        fail("the scene run's agents did not get the training split's statistics")
+    print(f"[scene_eval] {len(evaluation['stats'])} agents, each with the training split's "
+          f"robot_obs statistics", flush=True)
+    return train, evaluation
+
+
+def bf16_step(pipeline: list) -> float:
+    """An output's change for one bf16 step (1.0) of a pixel value below
+    256 before the pipeline's normalising ops, with a margin of 1.25 for
+    the colour jitter's brightness, contrast and hue (each near 1)."""
+    gain = 1.0 / 255
+    for op in pipeline:
+        if op["op"] in ("scale_normalize", "normalize"):
+            gain /= min(op["std"])
+    return 1.25 * gain
+
+
+def phase_presets(dev: torch.device) -> float:
+    """(aa) Every transform preset's train and val pipelines on the card
+    against the CPU, same draws, fp32, 2 windows of 8 frames at the presets'
+    200/84 px and at 96/64 px (every resize then changes the size), depth
+    and scene_obs included: within 1e-5 of the output's scale when the
+    card's pipeline is given the CPU's resize values. With its own resize,
+    frames resized and then shifted round to bf16 first (as JAX's do), and
+    where the two fp32 resizes straddle a bf16 boundary a pixel rounds
+    apart: fewer than 1e-3 of the elements may then differ, by at most one
+    bf16 step (``bf16_step``). Every uint8 kernel run launched, none on the
+    plain version."""
+    import numpy as np
+
+    from hulc2_torch import kernels
+    from hulc2_torch.data import device_transforms as tdt
+    from hulc2_torch.data.statistics import DatasetStatistics
+    from hulc2_torch.ops import preprocess
+
+    obs = {"rgb_obs": ["rgb_static", "rgb_gripper"], "depth_obs": ["depth_static", "depth_gripper"],
+           "state_obs": ["robot_obs", "scene_obs"], "actions": ["rel_actions"]}
+    proprio = {"n_state_obs": 54, "keep_indices": [[0, 54]], "robot_orientation_idx": [3, 6],
+               "normalize": True, "normalize_robot_orientation": True}
+    stats = DatasetStatistics(robot_obs_mean=np.full(15, 0.1, np.float32),
+                              robot_obs_std=np.full(15, 2.0, np.float32),
+                              scene_obs_mean=np.full(24, -0.1, np.float32),
+                              scene_obs_std=np.full(24, 3.0, np.float32))
+    g = torch.Generator().manual_seed(80)
+    resize = preprocess.resize_shorter_edge
+    worst, worst_own, apart, cases, t0 = 0.0, 0.0, 0.0, 0, time.perf_counter()
+    for sizes in ({"rgb_static": 200, "rgb_gripper": 84}, {"rgb_static": 96, "rgb_gripper": 64}):
+        raw = {cam: torch.randint(0, 256, (2, 8, hw, hw, 3), generator=g, dtype=torch.uint8)
+               for cam, hw in sizes.items()}
+        for cam, hw in sizes.items():
+            raw[cam.replace("rgb", "depth")] = (torch.rand((2, 8, hw, hw), generator=g) * 2
+                                                + 0.5).half()
+        raw.update(robot_obs_raw=torch.randn((2, 8, 15), generator=g),
+                   scene_obs=torch.randn((2, 8, 24), generator=g),
+                   actions=torch.randn((2, 8, 7), generator=g))
+        for preset in tdt.TRANSFORM_PRESETS:
+            for split in ("train", "val"):
+                pipelines = tdt.TRANSFORM_PRESETS[preset][split]
+                tf = tdt.make_batch_transform(obs, proprio, preset, train=split == "train",
+                                              stats=stats)
+                draws = seeded_draws(pipelines, raw, 90 + cases)
+                runs = sum(tdt.kernel_run(pipelines.get(c, []), 0,
+                                          raw[c].reshape(-1, *raw[c].shape[2:])) is not None
+                           for c in obs["rgb_obs"])
+                kernels.reset_launch_counts()
+                got = tf(to_dev(raw, dev), None, draws=to_dev(draws, dev))
+                torch.cuda.synchronize(dev)
+                if kernels.LAUNCHES["shift_normalize"] != runs:
+                    fail(f"{preset} {split}: {kernels.LAUNCHES['shift_normalize']} kernel launches "
+                         f"for {runs} uint8 runs")
+                want = tf(raw, None, draws=draws)
+                preprocess.resize_shorter_edge = lambda x, size: resize(x.cpu(), size).to(x.device)
+                try:
+                    same_resize = tf(to_dev(raw, dev), None, draws=to_dev(draws, dev))
+                finally:
+                    preprocess.resize_shorter_edge = resize
+                for group in ("rgb_obs", "depth_obs"):
+                    for k, w in want[group].items():
+                        scale = max(1.0, w.abs().max().item())
+                        err = (same_resize[group][k].float().cpu() - w.float()).abs().max().item() \
+                            / scale
+                        worst = max(worst, err)
+                        if same_resize[group][k].shape != w.shape or err > 1e-5:
+                            fail(f"{preset} {split} {k} at {sizes}: card and CPU differ by "
+                                 f"{err:.3g} of scale")
+                        d = (got[group][k].float().cpu() - w.float()).abs()
+                        share = (d > 1e-5 * scale).float().mean().item()
+                        worst_own, apart = max(worst_own, d.max().item()), max(apart, share)
+                        if share >= 1e-3 or d.max().item() > bf16_step(pipelines.get(k, [])):
+                            fail(f"{preset} {split} {k} at {sizes}: with the card's own resize "
+                                 f"{share:.3g} of the elements differ, by up to {d.max().item():.3g}")
+                if not torch.allclose(got["robot_obs"].cpu(), want["robot_obs"], atol=1e-5):
+                    fail(f"{preset} {split}: robot_obs differs")
+                cases += 1
+    print(f"[presets] {len(tdt.TRANSFORM_PRESETS)} presets x train/val x 2 frame sizes = "
+          f"{cases} cases, card against CPU: largest difference {worst:.3g} of scale (tol 1e-5) "
+          f"with the CPU's resize values; with the card's own resize at most {apart:.3g} of a "
+          f"camera's elements differ by more, by up to {worst_own:.3g} (one bf16 step at most) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def phase_kernel_presets(dev: torch.device) -> dict:
+    """(aa) The kernel at the other presets' static-camera shapes (the
+    static-only run's are (q)'s) against its plain version, bit for bit,
+    fp32 and bf16; then its device time, the plain version's and a bf16
+    cast's beside the bytes bound."""
+    from hulc2_torch.ops import preprocess
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    rows = {}
+    for seed, (preset, (n, h, w, pad, mean, std)) in enumerate(bench.PRESET_SHAPES.items()):
+        sets = bench.make_sets(n, h, pad, bench.SETS, dev, 50 + seed, w)
+        imgs, offsets = sets[0]
+        err = 0.0
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = preprocess.random_shift_normalize(imgs, offsets, pad, mean, std, out_dtype)
+            want = preprocess.shift_normalize_plain(imgs, offsets, pad, mean, std, out_dtype)
+            torch.cuda.synchronize(dev)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            if err > 0 or got.shape != want.shape:
+                fail(f"shift_normalize disagrees with its plain version at {preset}'s {h}x{w} "
+                     f"pad {pad} {out_dtype}")
+        ms = bench.device_ms(bench.rotating(bench.kernel_fn(pad, mean, std), sets))
+        plain_ms = bench.device_ms(bench.rotating(bench.plain_fn(pad, mean, std), sets))
+        cast_ms = bench.device_ms(bench.rotating(bench.cast_fn, sets))
+        bound_ms, bound_by = bench.bound(n, h, 2, w)
+        rows[preset] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "max_abs_err": err}
+        print(f"[presets] shift_normalize {preset} rgb_static {n}x{h}x{w}x3 pad {pad} mean {mean} "
+              f"std {std}: max_abs_err {err:.3g} (tol 0); bf16 device time per launch {ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}% of its {bound_ms:.4f} ms bound, {bound_by}); plain "
+              f"{plain_ms:.4f} ms; bf16 cast of the same bytes {cast_ms:.4f} ms", flush=True)
+        del sets, imgs, offsets, got, want
+    return rows
 
 
 def main() -> int:
@@ -1497,6 +1848,29 @@ def main() -> int:
     option_paths = {"gcbc_train": gcbc_train, "gcbc_eval": gcbc_eval,
                     "recurrent_train": rec_train, "recurrent_eval": rec_eval}
 
+    phase_obs_reference(dev)
+    depth_train, depth_eval = phase_depth_run(dev, card)
+    scene_train, scene_eval = phase_scene_run(dev, card)
+    phase_presets(dev)
+    preset_kernel = phase_kernel_presets(dev)
+    single = {}
+    for mod, run_dir in (("vision_only", VISION_ONLY_RUN), ("lang_only", LANG_ONLY_RUN)):
+        single[mod] = phase_low_train(dev, card, f"{mod}_train", run_dir, "cfg_low_level",
+                                      [f"datamodule/datasets={mod}"], SINGLE_STEPS, OBS_VAL, 2, 2)
+        del single[mod]["model"]
+    print(f"[observation_space] train step (median, host clock) and loader wait: depth "
+          f"{depth_train['step_ms']:.2f} ms ({depth_train['wait_ms']:.2f} ms waiting), static "
+          f"camera + robot_scene + frame skip {scene_train['step_ms']:.2f} ms "
+          f"({scene_train['wait_ms']:.2f}), vision_only {single['vision_only']['step_ms']:.2f} ms "
+          f"({single['vision_only']['wait_ms']:.2f}), lang_only "
+          f"{single['lang_only']['step_ms']:.2f} ms ({single['lang_only']['wait_ms']:.2f}); eval "
+          f"env-steps/s: depth {depth_eval['rate']:.1f}, static camera + scene "
+          f"{scene_eval['rate']:.1f}; on {card}", flush=True)
+    option_paths.update({"depth_train": depth_train, "depth_eval": depth_eval,
+                         "scene_train": scene_train, "scene_eval": scene_eval,
+                         "vision_only_train": single["vision_only"],
+                         "lang_only_train": single["lang_only"]})
+
     entry = {
         "name": "shift_normalize",
         "route": "cuda",
@@ -1508,7 +1882,8 @@ def main() -> int:
             low_train_launches, low_eval_launches))
         + sum(r["launches"]["shift_normalize"] for r in option_paths.values()),
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err,
-                           low_kernel["max_abs_err"]),
+                           low_kernel["max_abs_err"],
+                           *(r["max_abs_err"] for r in preset_kernel.values())),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -1530,11 +1905,14 @@ def main() -> int:
         "eval_dispatch": {k: pad0[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "rand_shift_step": {k: low_kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                        "max_abs_err")},
+        "preset_static_launch": preset_kernel,
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
           f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
           f"{kernel['cast_ms']:.4f} ms); eval_dispatch holds the same per eval dispatch at pad 0, "
-          f"rand_shift_step per cfg_low_level train step (200 px pad 10 and 84 px pad 4)",
+          f"rand_shift_step per cfg_low_level train step (200 px pad 10 and 84 px pad 4), "
+          f"preset_static_launch per static-camera launch of the real_world, real_world_square "
+          f"and clip presets",
           flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

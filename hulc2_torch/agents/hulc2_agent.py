@@ -6,12 +6,21 @@ mode's affordance approach runs in the batched evaluator
 ``reset(caption)`` is not ported. The agent holds
 no model state in Python: the policy's state of its ``n_envs`` envs is a
 device-resident ``PolicyCarry``; ``reset_env_slot`` restarts one env's slice
-of it. Each ``step_async`` copies the observations (K frames, or only K x 39
-state floats with ``device_render``) and the goal tokens to the device through
+of it. Each ``step_async`` copies the observations (K frames, the depth
+maps of the observation space's depth cameras, robot_obs and scene_obs, or
+only those K x 39 state floats with ``device_render``) and the goal tokens to
+the device through
 pinned memory without waiting, makes one fused step call and returns the
 device action without waiting for it, so that an evaluator can keep several
 cohorts' steps in flight. The random draws come from one ``torch.Generator``
-on the device, seeded by ``seed``.
+on the device, seeded by ``seed``. robot_obs (and scene_obs) are normalised
+with ``stats``, the statistics of the split the policy was trained on: JAX's
+fake-env agent gets none (``hulc2_tpu/evaluation/evaluate_policy.py:339``),
+so a proprio encoder there sees raw robot_obs at eval and normalised ones in
+training; the port's eval hands them in. ``scene_obs`` reaches the
+transform on every path, which reads it when the observation space names
+it; JAX's ``_obs_to_device`` (``hulc2_tpu/agents/hulc2_agent.py:146-164``)
+drops it.
 """
 from __future__ import annotations
 
@@ -21,27 +30,32 @@ import numpy as np
 import torch
 
 from hulc2_torch.data.device_transforms import make_batch_transform
+from hulc2_torch.data.statistics import DatasetStatistics
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
 from hulc2_torch.train.steps import make_fused_policy_step, make_fused_render_policy_step
 
 
 class Hulc2Agent:
     def __init__(self, model: Hulc2, dm_cfg: dict, seed: int = 0, n_envs: int = 1,
-                 fused_step=None, device_render: Optional[dict] = None):
+                 fused_step=None, device_render: Optional[dict] = None,
+                 stats: Optional[DatasetStatistics] = None):
         """``model`` lives on the device the agent runs on. ``fused_step``
         shares one agent's step function with the others of an evaluator.
         ``device_render`` = {"static_hw": H, "gripper_hw": h} renders the fake
-        env's frames on the device from its state floats."""
+        env's frames (and depth_static) on the device from its state floats.
+        ``stats`` are the training split's statistics."""
         self.model = model
         self.n_envs = n_envs
         self.device = next(model.parameters()).device
         obs_space = dm_cfg["observation_space"]
-        if obs_space.get("depth_obs"):
-            raise NotImplementedError("depth cameras are not ported")
+        self._depth_keys = list(obs_space["depth_obs"])
+        if "depth_gripper" in self._depth_keys:
+            raise NotImplementedError("the fake env renders no gripper depth: depth_gripper is "
+                                      "not an observation of its rollouts")
         bf16 = self.device.type == "cuda" and model.compute_dtype == torch.bfloat16
         self._transform = make_batch_transform(
             obs_space, dm_cfg["proprioception_dims"], dm_cfg.get("transforms", "rand_shift_96"),
-            dtype=torch.bfloat16 if bf16 else torch.float32, train=False)
+            dtype=torch.bfloat16 if bf16 else torch.float32, train=False, stats=stats)
         self._rgb_keys = list(obs_space["rgb_obs"])
         self.device_render = device_render
         if fused_step is not None:
@@ -50,10 +64,10 @@ class Hulc2Agent:
             from hulc2_torch.envs.render_torch import make_render_obs_fn
 
             render_fn = make_render_obs_fn(int(device_render["static_hw"]),
-                                           int(device_render["gripper_hw"]), with_depth=False,
-                                           device=self.device)
-            self._fused_step = make_fused_render_policy_step(model, self._transform, render_fn,
-                                                             self._rgb_keys)
+                                           int(device_render["gripper_hw"]),
+                                           with_depth=bool(self._depth_keys), device=self.device)
+            self._fused_step = make_fused_render_policy_step(
+                model, self._transform, render_fn, self._rgb_keys, self._depth_keys)
         else:
             self._fused_step = make_fused_policy_step(model, self._transform)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -93,8 +107,12 @@ class Hulc2Agent:
         """Raw env obs (one env, or an EnvFarm stack) -> (B, 1, ...) device tensors."""
         raw = {cam: self._to_device(self._batched(v, 3)[:, None])
                for cam, v in obs["rgb_obs"].items() if cam in self._rgb_keys}
+        raw.update({cam: self._to_device(self._batched(obs["depth_obs"][cam], 2)[:, None])
+                    for cam in self._depth_keys})
         robot = self._batched(obs["robot_obs"], 1).astype(np.float32)
         raw["robot_obs_raw"] = self._to_device(robot[:, None])
+        scene = self._batched(obs["scene_obs"], 1).astype(np.float32)
+        raw["scene_obs"] = self._to_device(scene[:, None])
         raw["actions"] = torch.zeros((self.n_envs, 1, 7), dtype=torch.float32, device=self.device)
         return raw
 
@@ -103,7 +121,7 @@ class Hulc2Agent:
         transformed once and kept on the device for the whole subtask."""
         with torch.inference_mode():
             tfd = self._transform(self._obs_to_device(goal_obs), None)
-        return {"rgb_obs": tfd["rgb_obs"]}
+        return {k: tfd[k] for k in ("rgb_obs", "depth_obs", "robot_obs")}
 
     def step_async(self, obs: Dict, goal: Dict,
                    draws: Optional[PolicyDraws] = None) -> torch.Tensor:

@@ -14,9 +14,14 @@ Two training paths, as in the JAX package:
 The validation split is always held in a RAM cache: the JAX package reads
 its windows frame by frame from the npz files, which gives the same windows
 at one file read per frame of every window; the cache reads each frame
-once. Each split's ``statistics.yaml`` is parsed into ``stats``. Not ported,
-and refused by name: the subprocess loader (``loader_isolation``),
-within-window frame skipping and single-modality datasets.
+once. Each split's ``statistics.yaml`` is parsed into ``stats``.
+``datamodule.frame_skip`` (``random`` or ``diff``) subsamples the windows of
+both splits (the device store refuses it); ``datamodule.datasets`` with one
+modality off (``vision_only``, ``lang_only``) builds that modality's
+datasets only, and its training batches come from the per-modality
+``BatchLoader`` as {modality: batch}, as in JAX (the device store refuses
+it, as JAX's does). Not ported, and refused by name: the subprocess loader
+(``loader_isolation=process``).
 """
 from __future__ import annotations
 
@@ -26,8 +31,9 @@ from typing import Dict, Iterator, Optional
 
 from hulc2_torch.data import episode_index as ei
 from hulc2_torch.data.device_store import DeviceFrameStore, DeviceGatherFusedLoader
+from hulc2_torch.data.frame_skip import make_frame_skip
 from hulc2_torch.data.frame_store import NpzFrameStore, RamFrameStore
-from hulc2_torch.data.loader import BatchLoader, FusedBatchLoader, zip_modalities
+from hulc2_torch.data.loader import BatchLoader, FusedBatchLoader, ModalityLoader, zip_modalities
 from hulc2_torch.data.statistics import DatasetStatistics, load_statistics
 from hulc2_torch.data.window_dataset import WindowDataset
 from hulc2_torch.utils.device import resolve_device
@@ -44,12 +50,17 @@ class Hulc2DataModule:
         self.device = resolve_device(device)
         self.root = Path(dm_cfg["root_data_dir"])
         self.use_shm_cache = use_shm_cache
-        if dm_cfg.get("frame_skip") is not None:
-            raise NotImplementedError("datamodule.frame_skip is not ported")
         if dm_cfg.get("loader_isolation", "none") != "none":
             raise NotImplementedError("datamodule.loader_isolation is not ported")
-        if any(not on for on in (dm_cfg.get("datasets") or {}).values()):
-            raise NotImplementedError("single-modality datasets are not ported")
+        ds = dm_cfg.get("datasets") or {}
+        self.modalities = tuple(m for m in MODALITIES if ds.get(m, True))
+        if not self.modalities:
+            raise ValueError("datamodule.datasets disables every modality")
+        if dm_cfg.get("frame_skip") and dm_cfg.get("device_store", False):
+            raise NotImplementedError("the device-store gather does not support frame_skip")
+        if len(self.modalities) == 1 and dm_cfg.get("device_store", False):
+            raise NotImplementedError("the device store needs both modalities: a single-modality "
+                                      "config trains through the per-modality loader")
         self.stats: Dict[str, DatasetStatistics] = {}
         self._stores: Dict[str, object] = {}
         self.datasets: Dict[str, WindowDataset] = {}
@@ -74,19 +85,23 @@ class Hulc2DataModule:
                                       use_shm=self.use_shm_cache and split == "training",
                                       num_workers=self.cfg.get("num_workers", 8))
             self._stores[split] = store
-            indices = {
-                "vis": ei.build_vision_index(
+            indices = {}
+            if "vis" in self.modalities:
+                indices["vis"] = ei.build_vision_index(
                     split_dir, split, self.cfg["min_window_size"], self.cfg["max_window_size"],
-                    self.cfg.get("data_percent", 1.0)),
-                "lang": ei.build_lang_index(
+                    self.cfg.get("data_percent", 1.0))
+            if "lang" in self.modalities:
+                indices["lang"] = ei.build_lang_index(
                     split_dir, split, self.cfg["min_window_size"], self.cfg["max_window_size"],
                     self.cfg["lang_folder"], self.cfg.get("skip_frames", 1),
                     self.cfg.get("data_percent", 1.0), self.cfg.get("aux_lang_loss_window", 8),
-                    self.cfg.get("load_lang_embeddings", True)),
-            }
+                    self.cfg.get("load_lang_embeddings", True))
+            # both splits skip frames, so that their windows keep one shape
+            fskip = make_frame_skip(self.cfg.get("frame_skip"))
             for key, index in indices.items():
                 self.datasets[f"{key}_{split}"] = WindowDataset(
-                    index, store, obs, pad=self.cfg.get("pad", True), seed=self.seed)
+                    index, store, obs, pad=self.cfg.get("pad", True), seed=self.seed,
+                    frame_skip=fskip)
         logger.info("datamodule: %s", {k: len(v) for k, v in self.datasets.items()})
 
     def _batch_size(self, key: str) -> int:
@@ -97,8 +112,15 @@ class Hulc2DataModule:
         store: the upload happens here, after which the RAM cache's image
         arrays are dropped (only the small keys are read per step), and the
         loader gathers on the device. Without: the host ``FusedBatchLoader``,
-        its buffers pinned on the card."""
+        its buffers pinned on the card. With one modality: its
+        ``BatchLoader`` (``ModalityLoader``)."""
         if self._train_loader is not None:
+            return self._train_loader
+        if len(self.modalities) == 1:
+            (m,) = self.modalities
+            self._train_loader = ModalityLoader(m, BatchLoader(
+                self.datasets[f"{m}_training"], self._batch_size(m), shuffle=True, seed=self.seed,
+                num_threads=self.cfg.get("num_workers", 4)))
             return self._train_loader
         vis, lang = self.datasets["vis_training"], self.datasets["lang_training"]
         if not self.cfg.get("device_store", False):
@@ -126,16 +148,18 @@ class Hulc2DataModule:
             self._stores["training"].cleanup()
 
     def val_iter(self) -> Iterator[Dict]:
-        """{"vis": ..., "lang": ...} numpy batches of the validation split, in
-        index order unless ``shuffle_val``."""
+        """{"vis": ..., "lang": ...} numpy batches of the validation split (of
+        the configured modalities), in index order unless ``shuffle_val``."""
         loaders = [BatchLoader(self.datasets[f"{m}_validation"], self._batch_size(m),
                                shuffle=self.cfg.get("shuffle_val", False), seed=self.seed,
                                num_threads=self.cfg.get("num_workers", 4))
-                   for m in MODALITIES]
-        return zip_modalities(MODALITIES, *loaders)
+                   for m in self.modalities]
+        return zip_modalities(self.modalities, *loaders)
 
     def steps_per_epoch(self) -> int:
-        return min(len(self.datasets[f"{m}_training"]) // self._batch_size(m) for m in MODALITIES)
+        return min(len(self.datasets[f"{m}_training"]) // self._batch_size(m)
+                   for m in self.modalities)
 
     def val_batches(self) -> int:
-        return min(len(self.datasets[f"{m}_validation"]) // self._batch_size(m) for m in MODALITIES)
+        return min(len(self.datasets[f"{m}_validation"]) // self._batch_size(m)
+                   for m in self.modalities)

@@ -3,10 +3,13 @@
 
 Windows overlap heavily (stride-1 sampling over play episodes), so streaming
 pixel batches re-sends every frame about window-size times per epoch.
-Instead each image key of the split is uploaded ONCE as one uint8 (N, H*W*C)
-tensor; per step the host computes only the window *plan* (frame-row indices
-with pad-repeat semantics, plus the small keys: actions, proprio, language),
-and the (B, S) gather is one ``index_select`` per key on the device.
+Instead each image key of the split is uploaded ONCE as one (N, H*W*C)
+tensor in its stored dtype (uint8 RGB, float16 depth, which the transform
+widens); per step the host computes only the window *plan* (frame-row
+indices with pad-repeat semantics, plus the small keys: actions, proprio,
+scene_obs when the observation space names it, language), and the (B, S)
+gather is one ``index_select`` per key on the device. Frame skipping is
+refused, as JAX's gather refuses it (``hulc2_tpu/data/device_store.py:104-105``).
 
 Sampling is bit-identical to the JAX package's ``loader.FusedBatchLoader``
 and ``DeviceGatherFusedLoader``: the same epoch orders from
@@ -30,7 +33,7 @@ logger = logging.getLogger(__name__)
 
 
 class DeviceFrameStore:
-    """Per-key flat uint8 frame rows on ``device``, indexed by frame row.
+    """Per-key flat frame rows on ``device``, indexed by frame row.
 
     Built from a ``RamFrameStore`` (one contiguous (N, ...) array per key);
     ``gather`` reshapes the gathered rows to (B, S, H, W, C)."""
@@ -65,13 +68,15 @@ class DeviceGatherFusedLoader:
     """Fused [vis; lang] batches with the images gathered on the device.
 
     Each batch holds the image keys as device tensors (B, S, H, W, C) and the
-    small keys as host numpy arrays: ``robot_obs_raw`` and ``actions`` for
-    all rows, ``lang``, ``use_for_aux_lang_loss`` and ``lang_task_id`` for
+    small keys as host numpy arrays: ``robot_obs_raw``, ``actions`` and
+    [``scene_obs``] for all rows, ``lang``, ``use_for_aux_lang_loss`` and ``lang_task_id`` for
     the lang rows. ``DevicePrefetcher`` copies the small keys up."""
 
     def __init__(self, vis_dataset: WindowDataset, lang_dataset: WindowDataset,
                  dev_store: DeviceFrameStore, batch_size_vis: int, batch_size_lang: int,
                  seed: int = 0):
+        if vis_dataset.frame_skip is not None or lang_dataset.frame_skip is not None:
+            raise NotImplementedError("the device-store gather does not support frame_skip")
         if vis_dataset.padded_size != lang_dataset.padded_size:
             raise ValueError("vis and lang windows must pad to one size")
         self.vis = vis_dataset
@@ -105,10 +110,12 @@ class DeviceGatherFusedLoader:
             r0 = self.store.id_to_row[start]
             r = row0 + j
             rows[r] = r0 + np.minimum(arange, ws - 1)  # pad = repeat the last frame
-            robs = ram.arrays["robot_obs"][r0 : r0 + ws]
-            dst = out["robot_obs_raw"][r]
-            dst[:ws] = robs
-            dst[ws:] = robs[-1]
+            for key, small in (("robot_obs", "robot_obs_raw"), ("scene_obs", "scene_obs")):
+                if small in out:
+                    obs = ram.arrays[key][r0 : r0 + ws]
+                    dst = out[small][r]
+                    dst[:ws] = obs
+                    dst[ws:] = obs[-1]
             acts = ram.arrays[ds.action_key][r0 : r0 + ws]
             dst = out["actions"][r]
             dst[:ws] = acts
@@ -135,6 +142,9 @@ class DeviceGatherFusedLoader:
             "use_for_aux_lang_loss": np.empty((self.bl,), np.bool_),
             "lang_task_id": np.empty((self.bl,), np.int32),
         }
+        if self.vis.with_scene:
+            small["scene_obs"] = np.empty((b, self.S, ram.arrays["scene_obs"].shape[-1]),
+                                          np.float32)
         self._plan_rows(self.vis, vis_idxs, epoch, rows, 0, small)
         self._plan_rows(self.lang, lang_idxs, epoch, rows, self.bv, small)
         batch: Dict[str, object] = dict(self.store.gather(rows))

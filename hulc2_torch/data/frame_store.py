@@ -5,7 +5,9 @@
 ``load_frame`` one frame with ``np.load``, ``read_window_into`` a window of
 frames per key through the native loader (``data/native_loader.py``, C++
 without the GIL) straight into a batch row: the training path without the
-device store reads every window so (``WindowDataset.write_into``).
+device store reads every window so (``WindowDataset.write_into``). An entry
+lands in its row as stored (the port's datasets keep ``depth_static`` in
+float16, which the transform widens on the device).
 ``RamFrameStore`` holds a whole split in one contiguous numpy array per key,
 indexed by absolute frame id, with zero-copy window views
 (``read_window_into`` copies them); with ``use_shm`` the arrays live in named
@@ -81,7 +83,12 @@ class NpzFrameStore:
         and threads of the loader's own on top of it (JAX starts two per
         core for every window) oversubscribe the cores, which made a batch
         several times slower."""
-        paths = [self.frame_path(start + i) for i in range(size)]
+        self.read_frames_into(range(start, start + size), out)
+
+    def read_frames_into(self, frame_ids, out: Dict[str, np.ndarray]) -> None:
+        """``read_window_into`` of the frames ``frame_ids``, in their order
+        (the kept frames of a skipped window)."""
+        paths = [self.frame_path(int(i)) for i in frame_ids]
         for k, dst in out.items():
             native_loader.load_frames_into(paths, k, dst, n_threads=1)
 
@@ -214,3 +221,10 @@ class RamFrameStore:
         row = self.id_to_row[int(start)]
         for k, dst in out.items():
             dst[...] = self.arrays[k][row: row + size]
+
+    def read_frames_into(self, frame_ids, out: Dict[str, np.ndarray]) -> None:
+        """Copy the frames ``frame_ids`` of each key of ``out``, in their
+        order, into ``out[key]``."""
+        rows = [self.id_to_row[int(i)] for i in frame_ids]
+        for k, dst in out.items():
+            dst[...] = self.arrays[k][rows]

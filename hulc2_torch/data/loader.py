@@ -2,7 +2,8 @@
 (``hulc2_tpu/data/loader.py``).
 
 ``BatchLoader`` (with ``collate`` and ``zip_modalities``) yields the
-validation split's {"vis": ..., "lang": ...} numpy batches.
+validation split's {"vis": ..., "lang": ...} numpy batches, and, through
+``ModalityLoader``, the training batches of a single-modality config.
 ``FusedBatchLoader`` assembles the training batches of the path without the
 device store on the host: fused [vis; lang] rows, every byte written once
 into its final buffer by the thread that read it. For the card those buffers
@@ -82,6 +83,32 @@ class BatchLoader:
                 yield batch
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
+
+
+class ModalityLoader:
+    """The training loader of a single-modality config
+    (``datamodule/datasets=vision_only|lang_only``): its modality's
+    ``BatchLoader``, each batch as {modality: batch}, as JAX routes such a
+    config through the per-modality iterator (``hulc2_tpu/data/datamodule.py:129-137``)."""
+
+    def __init__(self, modality: str, loader: BatchLoader):
+        self.modality = modality
+        self.loader = loader
+
+    @property
+    def epoch(self) -> int:
+        return self.loader.epoch
+
+    @epoch.setter
+    def epoch(self, value: int) -> None:
+        self.loader.epoch = value
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self) -> Iterator[Dict[str, Dict]]:
+        for batch in self.loader:
+            yield {self.modality: batch}
 
 
 def zip_modalities(modalities, *loaders) -> Iterator[Dict[str, Dict]]:
@@ -281,6 +308,15 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     return out
 
 
+def tensors(batch: Dict) -> Iterator[torch.Tensor]:
+    """The tensors of a (nested) batch dict."""
+    for v in batch.values():
+        if isinstance(v, dict):
+            yield from tensors(v)
+        else:
+            yield v
+
+
 class DevicePrefetcher:
     """A thread that runs ``iterator`` ``prefetch`` batches ahead of the
     consumer and puts each batch on ``device`` (``to_device``).
@@ -351,7 +387,7 @@ class DevicePrefetcher:
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(event)
-            for t in batch.values():
+            for t in tensors(batch):
                 t.record_stream(stream)
         return batch
 

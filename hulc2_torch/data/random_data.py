@@ -5,12 +5,15 @@ that ``rand_shift_96`` then resizes), these frames have the native 96/64 size
 of the expert dataset (any size may be asked for), and the lang windows
 carry a ``lang_task_id`` in [0, n_tasks) so the task-CE head is on the path.
 Their ``lang`` is CLIP-BPE-shaped token ids, or, with ``lang_dim``, normal
-sentence embeddings of that width for a policy without a text tower. Each call of
+sentence embeddings of that width for a policy without a text tower. With
+``depth_keys`` each window carries float16 depth maps of those cameras
+(uniform in [0.5, 2.5] m, the size of its RGB camera), with ``scene_obs`` a
+(S, 24) scene_obs. Each call of
 ``next_batch`` draws a fresh batch from the generator in bulk on the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -21,10 +24,12 @@ CONTEXT_LENGTH = 77
 class RandomWindowBatches:
     def __init__(self, batch_vis: int, batch_lang: int, window: int, static_hw: int = 96,
                  gripper_hw: int = 64, action_dim: int = 7, n_tasks: int = 34,
-                 seed: int = 0, device="cuda", lang_dim: Optional[int] = None):
+                 seed: int = 0, device="cuda", lang_dim: Optional[int] = None,
+                 depth_keys: Sequence[str] = (), scene_obs: bool = False):
         self.batch_vis, self.batch_lang, self.window = batch_vis, batch_lang, window
         self.static_hw, self.gripper_hw = static_hw, gripper_hw
         self.action_dim, self.n_tasks, self.lang_dim = action_dim, n_tasks, lang_dim
+        self.depth_keys, self.scene_obs = tuple(depth_keys), scene_obs
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -37,6 +42,12 @@ class RandomWindowBatches:
                                          generator=g, device=dev, dtype=torch.uint8),
             "robot_obs_raw": torch.randn((b, s, 15), generator=g, device=dev),
         }
+        for key in self.depth_keys:
+            hw = self.static_hw if key == "depth_static" else self.gripper_hw
+            out[key] = (torch.rand((b, s, hw, hw), generator=g, device=dev) * 2.0
+                        + 0.5).to(torch.float16)
+        if self.scene_obs:
+            out["scene_obs"] = torch.randn((b, s, 24), generator=g, device=dev)
         actions = (torch.randn((b, s, self.action_dim), generator=g, device=dev) * 0.3).clamp(-1, 1)
         actions[..., -1] = torch.sign(actions[..., -1] + 1e-6)
         out["actions"] = actions

@@ -5,7 +5,9 @@ normalization vectors and the action bounds. Without PyYAML the fallback
 parser reads the file's restricted layout; unlike the JAX package's fallback,
 it also joins a flow list that continues over several lines (as the mean and
 std of the generated datasets' ``statistics.yaml`` do), so both parsers give
-the same statistics.
+the same statistics. ``save_statistics`` / ``load_run_statistics`` keep the
+training split's statistics in a run dir (``statistics.json``), for the
+run's evaluation.
 """
 from __future__ import annotations
 
@@ -103,3 +105,27 @@ def parse_simple_yaml(text: str) -> dict:
         if m and current_entry is not None:
             current_entry[m.group(1)] = json.loads(m.group(2))
     return out
+
+
+RUN_STATISTICS = "statistics.json"
+
+
+def save_statistics(run_dir: Path, stats: DatasetStatistics) -> None:
+    """Write ``stats`` into a run dir as ``statistics.json`` (the fields that
+    are set), for the run's evaluation."""
+    fields = {k: np.asarray(v, np.float32).tolist() for k, v in vars(stats).items()
+              if v is not None}
+    (Path(run_dir) / RUN_STATISTICS).write_text(json.dumps(fields, indent=1))
+
+
+def load_run_statistics(run_dir: Path) -> Optional[DatasetStatistics]:
+    """The statistics a run trained with (``save_statistics``), or None for a
+    run dir without them."""
+    path = Path(run_dir) / RUN_STATISTICS
+    if not path.is_file():
+        return None
+    fields = json.loads(path.read_text())
+    stats = DatasetStatistics()
+    for k, v in fields.items():
+        setattr(stats, k, np.asarray(v, np.float32) if k.endswith(("_mean", "_std")) else list(v))
+    return stats

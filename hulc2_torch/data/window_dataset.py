@@ -1,12 +1,17 @@
 """Window dataset: sample idx -> fixed-shape raw numpy window
 (``hulc2_tpu/data/window_dataset.py``).
 
-The port's numpy copy, without within-window frame skipping (``frame_skip``,
-which the flagship leaves off and the device-store path refuses). Host-side
+The port's numpy copy, with within-window frame skipping (``frame_skip``,
+``data/frame_skip.py``; the device-store path refuses it). Host-side
 counterpart of the reference's BaseDataset window sampling + padding
 (reference: hulc2/datasets/base_dataset.py:94-163), with transforms removed:
-the host emits raw uint8/float arrays padded to ``max_window_size``; all
-normalization and augmentation happens on the device.
+the host emits raw arrays padded to ``max_window_size`` (to the effective
+maximum when skipping frames); all normalization and augmentation happens on
+the device. Depth maps keep the dtype they are stored in (float16 in the
+port's datasets, float32 in JAX's batches; the transform widens them on the
+device), which halves their host bytes. ``scene_obs`` is carried wherever
+the observation space names it: JAX's fused writer leaves it out
+(``hulc2_tpu/data/window_dataset.py:133-190``), the port's does not.
 
 Padding semantics match the reference exactly (base_dataset.py:121-147):
 observations repeat the last frame; relative actions zero-pad all but the
@@ -14,11 +19,12 @@ gripper dim which repeats; absolute actions repeat.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 from hulc2_torch.data.episode_index import EpisodeIndex
+from hulc2_torch.data.frame_skip import FrameSkip
 
 
 def _pad_repeat(x: np.ndarray, pad: int) -> np.ndarray:
@@ -36,7 +42,7 @@ def _pad_zeros(x: np.ndarray, pad: int) -> np.ndarray:
 class WindowDataset:
     """Produces padded window dicts of raw arrays.
 
-    Sample keys: per-camera rgb (S,H,W,3) uint8 / depth (S,H,W) f32,
+    Sample keys: per-camera rgb (S,H,W,3) uint8 / depth (S,H,W) as stored,
     ``robot_obs_raw`` (S,15) f32, optional ``scene_obs`` (S,24) f32,
     ``actions`` (S,A) f32, ``seq_len`` int32, ``idx`` int64, and for language
     datasets ``lang`` (token ids (77,) int32, or an embedding (E,) f32),
@@ -44,7 +50,7 @@ class WindowDataset:
     """
 
     def __init__(self, index: EpisodeIndex, store, observation_space: dict, pad: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, frame_skip: Optional[FrameSkip] = None):
         self.index = index
         self.store = store  # NpzFrameStore | RamFrameStore
         self.obs_space = observation_space
@@ -55,7 +61,21 @@ class WindowDataset:
         self.action_key = observation_space["actions"][0]
         self.seed = seed
         self.rng = np.random.default_rng(seed)
-        self.padded_size = index.max_window_size
+        self.frame_skip = frame_skip
+        if frame_skip is not None and frame_skip.strategy == "diff" and not self.relative_actions:
+            raise ValueError("frame_skip strategy 'diff' requires rel_actions")
+        # windows pad to the effective maximum when skipping (the reference's
+        # ShmDatasetSkip.get_pad_size)
+        self.padded_size = (frame_skip.effective_max_ws if frame_skip is not None
+                            else index.max_window_size)
+        self.with_scene = "scene_obs" in observation_space.get("state_obs", ())
+
+    def _apply_skip(self, ep: Dict[str, np.ndarray], rng) -> Dict[str, np.ndarray]:
+        """Subsample every per-frame array of the raw window down to the
+        effective window (shm_dataset_skip.py:157-171)."""
+        ids = self.frame_skip.keep_ids(np.asarray(ep[self.action_key], np.float32),
+                                       self.index.min_window_size, self.index.max_window_size, rng)
+        return {k: v[ids] for k, v in ep.items()}
 
     def __len__(self) -> int:
         return len(self.index)
@@ -64,13 +84,14 @@ class WindowDataset:
         window_size = self.index.window_size(idx, self.rng)
         start = int(self.index.episode_lookup[idx])
         ep = self.store.load_window(start, window_size)
+        if self.frame_skip is not None:
+            ep = self._apply_skip(ep, self.rng)
+            window_size = len(ep[self.action_key])
         pad = (self.padded_size - window_size) if self.pad else 0
 
         out: Dict[str, np.ndarray] = {}
-        for cam in self.obs_space["rgb_obs"]:
+        for cam in list(self.obs_space["rgb_obs"]) + list(self.obs_space["depth_obs"]):
             out[cam] = _pad_repeat(np.ascontiguousarray(ep[cam]), pad)
-        for cam in self.obs_space["depth_obs"]:
-            out[cam] = _pad_repeat(np.asarray(ep[cam], np.float32), pad)
         out["robot_obs_raw"] = _pad_repeat(np.asarray(ep["robot_obs"], np.float32), pad)
         if "scene_obs" in ep:
             out["scene_obs"] = _pad_repeat(np.asarray(ep["scene_obs"], np.float32), pad)
@@ -106,16 +127,18 @@ class WindowDataset:
 
     def out_specs(self, batch: int) -> Dict[str, tuple]:
         """(shape, dtype) of preallocated fused-batch buffers for this
-        dataset's keys (images uint8: conversion to float happens on the
-        device)."""
+        dataset's keys (images uint8 and depth maps as stored: conversion to
+        float happens on the device)."""
         s = self.padded_size
         probe = self.store.load_window(int(self.index.episode_lookup[0]), 1)
         specs: Dict[str, tuple] = {}
         for cam in self.obs_space["rgb_obs"]:
             specs[cam] = ((batch, s, *probe[cam].shape[1:]), np.uint8)
         for cam in self.obs_space["depth_obs"]:
-            specs[cam] = ((batch, s, *probe[cam].shape[1:]), np.float32)
+            specs[cam] = ((batch, s, *probe[cam].shape[1:]), probe[cam].dtype)
         specs["robot_obs_raw"] = ((batch, s, probe["robot_obs"].shape[-1]), np.float32)
+        if self.with_scene:
+            specs["scene_obs"] = ((batch, s, probe["scene_obs"].shape[-1]), np.float32)
         specs["actions"] = ((batch, s, probe[self.action_key].shape[-1]), np.float32)
         if self.index.with_lang:
             lang0 = self._lang_value(0)
@@ -128,7 +151,8 @@ class WindowDataset:
         """Write sample ``idx``'s padded window into row ``row`` of
         preallocated batch buffers. Thread-safe: the train window size draws
         from a stateless per-(seed, epoch, idx) Generator instead of the
-        shared ``self.rng``."""
+        shared ``self.rng``. With frame skipping the window's actions are
+        read first, and the other keys of its kept frames only."""
         rng = np.random.default_rng((self.seed, epoch, idx))
         ws = self.index.window_size(idx, rng)
         start = int(self.index.episode_lookup[idx])
@@ -137,8 +161,22 @@ class WindowDataset:
         rows = {cam: out[cam][row] for cam in (list(self.obs_space["rgb_obs"])
                                                + list(self.obs_space["depth_obs"]))}
         rows["robot_obs"] = out["robot_obs_raw"][row]
+        if self.with_scene:
+            rows["scene_obs"] = out["scene_obs"][row]
         rows[self.action_key] = out["actions"][row]
-        self.store.read_window_into(start, ws, {k: dst[:ws] for k, dst in rows.items()})
+        if self.frame_skip is None:
+            self.store.read_window_into(start, ws, {k: dst[:ws] for k, dst in rows.items()})
+        else:
+            acts = rows.pop(self.action_key)
+            raw = np.empty((ws, *acts.shape[1:]), acts.dtype)
+            self.store.read_window_into(start, ws, {self.action_key: raw})
+            ids = self.frame_skip.keep_ids(raw, self.index.min_window_size,
+                                           self.index.max_window_size, rng)
+            ws = len(ids)
+            acts[:ws] = raw[ids]
+            self.store.read_frames_into(start + np.asarray(ids),
+                                        {k: dst[:ws] for k, dst in rows.items()})
+            rows[self.action_key] = acts
 
         for k, dst in rows.items():
             if k != self.action_key:

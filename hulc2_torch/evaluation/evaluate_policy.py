@@ -55,10 +55,12 @@ every saved step with the other flags and merges them into one
 ``results.json`` whose "best" is the step with the highest avg_seq_len.
 
 Runs on the card unless ``--device cpu`` is given, and refuses to run without
-one. Not ported yet: the real CALVIN env and the process env farm. As in the
-JAX package, the fake-env agents normalize no proprioception with the dataset
-statistics (the flagship has no proprio encoder, so its actions do not
-depend on it).
+one. Not ported yet: the real CALVIN env and the process env farm. The
+agents normalise robot_obs (and scene_obs) with the statistics the run
+trained with (``loading.run_statistics``); JAX's fake-env agents get none
+(``hulc2_tpu/evaluation/evaluate_policy.py:339``), so a proprio encoder
+there sees raw robot_obs. A depth policy gets the envs' depth_static
+(rendered on the device with ``--device-render``).
 """
 from __future__ import annotations
 
@@ -251,9 +253,9 @@ def main(argv: Optional[Sequence[str]] = None):
     from hulc2_torch.envs.calvin_wrapper import EnvFarm
     from hulc2_torch.envs.fake_env import FakeCalvinEnv
     from hulc2_torch.evaluation.batched_eval import PipelinedEvaluator
-    from hulc2_torch.evaluation.loading import load_affordance, load_policy
+    from hulc2_torch.evaluation.loading import load_affordance, load_policy, run_statistics
     from hulc2_torch.evaluation.tasks import TASK_NAMES
-    from hulc2_torch.models.build import build_policy
+    from hulc2_torch.models.build import build_policy_for
     from hulc2_torch.tools.annotations import VALIDATION_BANK, heldout_annotations
     from hulc2_torch.utils.device import resolve_device, set_precision_flags
 
@@ -293,14 +295,15 @@ def main(argv: Optional[Sequence[str]] = None):
     device = resolve_device(args.device)
     set_precision_flags()
     sizes = camera_sizes(cfg["datamodule"]["transforms"])
+    stats = None
     if args.train_dir is not None:
         model, cfg, step = load_policy(args.train_dir, args.checkpoint)
+        stats = run_statistics(args.train_dir, cfg)
         results_key = str(args.checkpoint) if args.checkpoint is not None else "latest"
         log_dir = Path(args.log_dir or Path(args.train_dir) / "evaluation")
         logger.info("policy: step %d of %s", step, args.train_dir)
     else:
-        model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
-                             static_hw=sizes["rgb_static"], seed=cfg["seed"])
+        model = build_policy_for(cfg)
         results_key = "synthetic"
         log_dir = Path(args.log_dir or "runs/torch_eval")
     model = model.to(device).eval()
@@ -332,7 +335,7 @@ def main(argv: Optional[Sequence[str]] = None):
         # each cohort draws from its own generator, seeded from the config's seed
         agent = Hulc2Agent(model, cfg["datamodule"], seed=cfg["seed"] + 1 + c, n_envs=size,
                            fused_step=shared_step,
-                           device_render=env_hw if args.device_render else None)
+                           device_render=env_hw if args.device_render else None, stats=stats)
         shared_step = shared_step or agent._fused_step
         cohorts.append((farm, agent))
     # scored by the scene-obs oracle, the evaluator's default

@@ -56,7 +56,7 @@ def main(argv: Optional[Sequence[str]] = None,
     from hulc2_torch.data.device_transforms import camera_sizes
     from hulc2_torch.envs.fake_env import FakeCalvinEnv
     from hulc2_torch.envs.task_oracle import SceneObsTaskOracle
-    from hulc2_torch.evaluation.loading import load_policy
+    from hulc2_torch.evaluation.loading import load_policy, run_statistics
     from hulc2_torch.evaluation.tasks import TASK_NAMES
     from hulc2_torch.utils.clip_tokenizer import tokenize
     from hulc2_torch.utils.device import resolve_device, set_precision_flags
@@ -71,7 +71,8 @@ def main(argv: Optional[Sequence[str]] = None,
     logger.info("policy: step %d of %s", step, args.train_dir)
     sizes = camera_sizes(cfg["datamodule"]["transforms"])
     env = FakeCalvinEnv(static_hw=sizes["rgb_static"], gripper_hw=sizes["rgb_gripper"])
-    agent = Hulc2Agent(model.to(device).eval(), cfg["datamodule"], seed=cfg["seed"])
+    agent = Hulc2Agent(model.to(device).eval(), cfg["datamodule"], seed=cfg["seed"],
+                       stats=run_statistics(args.train_dir, cfg))
     oracle = SceneObsTaskOracle()
     env.reset()
     verdicts = []

@@ -3,7 +3,9 @@
 A run's ``config.json`` is the model's spec; the newest (or a named) step
 under ``saved_models/`` gives its parameters (``core/checkpoint.py``).
 ``load_policy`` reads a run of ``python -m hulc2_torch.training``,
-``load_affordance`` one of ``python -m hulc2_torch.affordance.train_affordance``.
+``run_statistics`` the statistics it trained with (which its eval
+normalises robot_obs with; JAX's fake-env eval hands its agent none),
+``load_affordance`` a run of ``python -m hulc2_torch.affordance.train_affordance``.
 """
 from __future__ import annotations
 
@@ -12,8 +14,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 from hulc2_torch.core.checkpoint import CheckpointManager, load_run_config
-from hulc2_torch.data.device_transforms import camera_sizes
-from hulc2_torch.models.build import build_policy
+from hulc2_torch.data.statistics import RUN_STATISTICS, DatasetStatistics, load_run_statistics
+from hulc2_torch.models.build import build_policy_for
 from hulc2_torch.models.hulc2 import Hulc2
 
 logger = logging.getLogger(__name__)
@@ -23,15 +25,30 @@ def load_policy(run_dir, step: Optional[int] = None) -> Tuple[Hulc2, dict, int]:
     """(model on the CPU, the run's config, the loaded step)."""
     run_dir = Path(run_dir)
     cfg = load_run_config(run_dir)
-    sizes = camera_sizes(cfg["datamodule"]["transforms"])
-    model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
-                         static_hw=sizes["rgb_static"])
+    model = build_policy_for(cfg)
     restored = CheckpointManager(run_dir).restore(step)
     if restored is None:
         raise FileNotFoundError(f"no checkpoints under {run_dir}/saved_models")
     model.load_state_dict(restored["model"])
     logger.info("loaded step %d from %s", restored["step"], run_dir)
     return model, cfg, restored["step"]
+
+
+def run_statistics(run_dir, cfg: dict) -> Optional[DatasetStatistics]:
+    """The training split's statistics of a run, from the ``statistics.json``
+    the trainer writes into every run dir. A run dir without it raises when
+    the policy reads normalised state (a proprio encoder, or an observation
+    space that names scene_obs); for any other policy it is None, which
+    normalises nothing that policy reads."""
+    stats = load_run_statistics(run_dir)
+    if stats is None:
+        proprio = (cfg["model"]["perceptual_encoder"].get("proprio") or {}).get("n_state_obs", 0)
+        scene = "scene_obs" in cfg["datamodule"]["observation_space"].get("state_obs", ())
+        if proprio or scene:
+            raise FileNotFoundError(
+                f"{Path(run_dir) / RUN_STATISTICS}: the training statistics this policy's "
+                "robot_obs/scene_obs are normalised with")
+    return stats
 
 
 def load_affordance(run_dir, step: Optional[int] = None, device="cpu", seed: int = 0,

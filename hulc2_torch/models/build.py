@@ -10,18 +10,26 @@ with or without a discrete gripper (the deterministic decoder is built as
 JAX builds it, and refused where JAX's ``Hulc2`` would fail); the language
 side the CLIP text tower over token ids, ``lang_mlp`` over precomputed
 embeddings, or none; GCBC (``use_plan=false``); the CLIP aux loss and the
-state, BC-Z, MIA and task-CE heads.
+state, BC-Z, MIA and task-CE heads; the perceptual encoders of the static
+camera, the optional gripper camera, both depth cameras (the same encoder
+families over one channel) and the identity proprio slice.
+
+flax infers every input width at init; the port sizes its layers from the
+real widths: the proprio slice is ``robot_obs[..., :n_state_obs]`` of the
+processed robot_obs (39 wide with ``robot_scene``, whatever ``n_state_obs``
+says), and the decoder's ``perceptual_emb_slice`` is cut at the embedding's
+width as a slice is (8 wide on a 72-wide static-only embedding; with
+``depth_static`` it covers the depth features, as in JAX).
 
 Where the JAX factory ignores a key, so does the port: the plan proposal's
 ``activation_function``, the transformer's ``position_embedding`` (positions
 are always added), the BiLSTM/BiRNN posteriors' widths (2048, 2 layers),
 ``proj_vis_lang.proj_lang`` (always projected) and ``policy_rnn_dropout_p``.
-Depth, tactile and proprio encoders and the pretrained vision encoders raise
-by name.
+Tactile and the pretrained vision encoders raise by name.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +47,8 @@ from hulc2_torch.models.plan_nets import (PlanProposalNetwork, PlanRecognitionBi
                                           PlanRecognitionBiRNN, PlanRecognitionTransformer)
 from hulc2_torch.models.vision import VisionConv, VisionNetwork, VisionNetworkGripper
 
+ROBOT_OBS_DIM, SCENE_OBS_DIM = 15, 24
+
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -51,19 +61,60 @@ def _require(cond: bool, what: str) -> None:
         raise NotImplementedError(f"{what} is not ported")
 
 
-def build_static_encoder(cfg: dict, static_hw: int):
+def build_static_encoder(cfg: dict, static_hw: int, in_channels: int = 3):
+    """A static camera's encoder (``vision_network`` or ``vision_conv``);
+    with one channel, the depth camera's."""
     name = cfg["_name_"]
     kw = _without(cfg, "_name_")
     if name == "vision_network":
-        return VisionNetwork(**kw)
+        return VisionNetwork(**kw, in_channels=in_channels)
     if name == "vision_conv":
-        return VisionConv(static_hw, **kw)
+        return VisionConv(static_hw, **kw, in_channels=in_channels)
     raise NotImplementedError(f"static encoder {name!r} is not ported")
 
 
-def build_gripper_encoder(cfg: dict, gripper_hw: int):
+def build_gripper_encoder(cfg: dict, gripper_hw: int, in_channels: int = 3):
     _require(cfg["_name_"] == "vision_network_gripper", f"gripper encoder {cfg['_name_']!r}")
-    return VisionNetworkGripper(gripper_hw, **_without(cfg, "_name_"))
+    return VisionNetworkGripper(gripper_hw, **_without(cfg, "_name_"), in_channels=in_channels)
+
+
+def robot_obs_width(dm_cfg: dict) -> int:
+    """The width of the processed robot_obs the datamodule config gives:
+    its ``keep_indices`` slices of robot_obs [++ scene_obs, when the
+    observation space names it] (``data/device_transforms.process_proprio``;
+    none with null proprioception dims)."""
+    if dm_cfg["proprioception_dims"] is None:
+        return 0
+    total = ROBOT_OBS_DIM
+    if "scene_obs" in dm_cfg["observation_space"].get("state_obs", ()):
+        total += SCENE_OBS_DIM
+    return sum(len(range(total)[lo:hi]) for lo, hi in dm_cfg["proprioception_dims"]["keep_indices"])
+
+
+def build_perceptual_encoder(pe_cfg: dict, static_hw: int, gripper_hw: int,
+                             depth_static_hw: int, depth_gripper_hw: int,
+                             robot_obs_dim: Optional[int]) -> Tuple[ConcatEncoders, int]:
+    """(``ConcatEncoders``, the embedding's width)."""
+    _require(pe_cfg.get("tactile") is None, "the tactile encoder")
+    static = build_static_encoder(pe_cfg["rgb_static"], static_hw)
+    width = pe_cfg["rgb_static"]["visual_features"]
+    kw = {}
+    if pe_cfg.get("depth_static") is not None:
+        kw["depth_static"] = build_static_encoder(pe_cfg["depth_static"], depth_static_hw, 1)
+        width += pe_cfg["depth_static"]["visual_features"]
+    if pe_cfg.get("rgb_gripper") is not None:
+        kw["rgb_gripper"] = build_gripper_encoder(pe_cfg["rgb_gripper"], gripper_hw)
+        width += pe_cfg["rgb_gripper"]["visual_features"]
+        if pe_cfg.get("depth_gripper") is not None:
+            kw["depth_gripper"] = build_gripper_encoder(pe_cfg["depth_gripper"],
+                                                        depth_gripper_hw, 1)
+            width += pe_cfg["depth_gripper"]["visual_features"]
+    proprio = pe_cfg.get("proprio")
+    if proprio:
+        n = int(proprio["n_state_obs"])
+        kw["proprio_dim"] = n
+        width += n if robot_obs_dim is None else min(n, robot_obs_dim)
+    return ConcatEncoders(static, **kw), width
 
 
 def build_plan_recognition(pr_cfg: dict, in_features: int, state_dim: int):
@@ -130,18 +181,20 @@ def build_lang_net(le_cfg: Optional[dict], in_features: int):
 
 
 def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42,
-                 static_hw: int = 96) -> Hulc2:
+                 static_hw: int = 96, depth_static_hw: Optional[int] = None,
+                 depth_gripper_hw: Optional[int] = None,
+                 robot_obs_dim: Optional[int] = None) -> Hulc2:
     """The policy on the CPU, initialised from ``torch.Generator().manual_seed(seed)``;
     the caller moves it to its device. ``gripper_hw`` and ``static_hw`` are
-    the cameras' image sizes (they fix the flatten width of a trunk that
-    flattens its conv output)."""
+    the cameras' image sizes, the depth cameras' by default the same (they
+    fix the flatten width of a trunk that flattens its conv output);
+    ``robot_obs_dim`` is the processed robot_obs's width
+    (``robot_obs_width``), by default the proprio encoder's
+    ``n_state_obs``."""
     pe_cfg = model_cfg["perceptual_encoder"]
-    _require(all(pe_cfg.get(k) is None for k in ("depth_static", "depth_gripper", "tactile",
-                                                  "proprio")), "a depth/tactile/proprio encoder")
-    _require(pe_cfg.get("rgb_gripper") is not None, "a policy without the gripper camera")
-    static = build_static_encoder(pe_cfg["rgb_static"], static_hw)
-    gripper = build_gripper_encoder(pe_cfg["rgb_gripper"], gripper_hw)
-    emb_dim = pe_cfg["rgb_static"]["visual_features"] + pe_cfg["rgb_gripper"]["visual_features"]
+    perceptual, emb_dim = build_perceptual_encoder(
+        pe_cfg, static_hw, gripper_hw, depth_static_hw or static_hw,
+        depth_gripper_hw or gripper_hw, robot_obs_dim)
     dist = make_distribution(model_cfg["distribution"])
     use_plan = bool(model_cfg.get("use_plan", True))
     use_clip = bool(model_cfg.get("use_clip_auxiliary_loss", True))
@@ -152,12 +205,13 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42,
                                         lg_cfg.get("in_features", 384))
     ad_cfg = model_cfg["action_decoder"]
     slice_lo, slice_hi = ad_cfg.get("perceptual_emb_slice", (64, 128))
+    slice_width = len(range(emb_dim)[slice_lo:slice_hi])
     plan_width = dist.plan_features if use_plan else 0
     plan_recognition = build_plan_recognition(pr_cfg, emb_dim, dist.state_dim)
     seq_dim = plan_recognition.seq_features
 
     model = Hulc2(
-        perceptual_encoder=ConcatEncoders(static, gripper),
+        perceptual_encoder=perceptual,
         plan_proposal=PlanProposalNetwork(emb_dim + latent, dist.state_dim,
                                           model_cfg["plan_proposal"].get("hidden_size", 2048)),
         plan_recognition=plan_recognition,
@@ -169,7 +223,7 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42,
             latent_goal_features=lg_cfg.get("latent_goal_features", 32),
             l2_normalize_goal_embeddings=lg_cfg.get("l2_normalize_goal_embeddings", False),
             word_dropout_p=lg_cfg.get("word_dropout_p", 0.0)),
-        action_decoder=build_action_decoder(ad_cfg, plan_width + (slice_hi - slice_lo) + latent),
+        action_decoder=build_action_decoder(ad_cfg, plan_width + slice_width + latent),
         proj_vis_lang=(ProjVisLang(seq_dim, latent,
                                    (model_cfg.get("proj_vis_lang") or {}).get("output_dim", 32))
                        if use_clip else None),
@@ -189,3 +243,18 @@ def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42,
     )
     model.compute_dtype = COMPUTE_DTYPES[model_cfg.get("compute_dtype", "float32")]
     return init_weights_(model, torch.Generator().manual_seed(seed))
+
+
+def build_policy_for(cfg: dict, seed: Optional[int] = None) -> Hulc2:
+    """``build_policy`` of a run config (``model`` and ``datamodule``): the
+    cameras' sizes from its transform preset, the robot_obs width from its
+    observation space and proprioception dims."""
+    from hulc2_torch.data.device_transforms import camera_sizes, depth_sizes
+
+    dm_cfg = cfg["datamodule"]
+    sizes, depth = camera_sizes(dm_cfg["transforms"]), depth_sizes(dm_cfg["transforms"])
+    return build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
+                        seed=cfg["seed"] if seed is None else seed,
+                        static_hw=sizes["rgb_static"], depth_static_hw=depth["depth_static"],
+                        depth_gripper_hw=depth["depth_gripper"],
+                        robot_obs_dim=robot_obs_width(dm_cfg))

@@ -118,25 +118,46 @@ class Hulc2(nn.Module):
             return state.new_zeros(state.shape[0], 0)
         return (self.dist.rsample if rsample else self.dist.sample)(state, noise, generator)
 
+    def encode(self, obs: Dict, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The perceptual embedding (B, S, E) of a transformed batch's
+        ``rgb_obs``, ``depth_obs`` and processed ``robot_obs``."""
+        return self.perceptual_encoder(obs["rgb_obs"], obs.get("depth_obs"), obs.get("robot_obs"),
+                                       deterministic, generator)
+
+    def encode_goals(self, emb: torch.Tensor, lang_emb: Optional[torch.Tensor], n_vis: int,
+                     deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Visual goals of the first ``n_vis`` rows (their last frame), then
+        the language goals of the rest (``hulc2.py:100-106``)."""
+        goals = [self.visual_goal(emb[:n_vis, -1])] if n_vis else []
+        if lang_emb is not None:
+            goals.append(self.language_goal(lang_emb, deterministic, generator))
+        return torch.cat(goals) if len(goals) > 1 else goals[0]
+
     def forward(self, batch: Dict, kl_beta: float, n_vis: int, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Fused [vis; lang] batch -> metrics dict (``fused_n_vis`` form of the
-        JAX ``__call__``, with both modalities). ``batch`` holds ``rgb_obs``
-        {cam: (B, S, H, W, C)}, ``robot_obs``, ``actions``, ``robot_obs_raw``
-        and, for the lang rows, ``lang`` (token ids, or embeddings without a
-        tower), ``use_for_aux_lang_loss`` and ``lang_task_id``. ``gumbel``
-        replaces the plan sampler's draw: Gumbel noise (B, categories,
-        classes) for discrete plans, standard normal (B, plan_features) for
-        continuous ones."""
+        JAX ``__call__``). ``batch`` holds ``rgb_obs`` {cam: (B, S, H, W, C)},
+        ``depth_obs`` {cam: (B, S, H, W)}, ``robot_obs``, ``actions``,
+        ``robot_obs_raw`` and, for the lang rows, ``lang`` (token ids, or
+        embeddings without a tower), ``use_for_aux_lang_loss`` and
+        ``lang_task_id``. A single-modality batch has only vis rows (no
+        ``lang``) or only lang rows (``n_vis`` 0), and only that modality's
+        metrics, as JAX's ``mods``. ``gumbel`` replaces the plan sampler's
+        draw: Gumbel noise (B, categories, classes) for discrete plans,
+        standard normal (B, plan_features) for continuous ones."""
         dec = self._decoder()
         actions, robot_obs_raw = batch["actions"], batch["robot_obs_raw"]
-        splits = {"vis": (0, n_vis), "lang": (n_vis, actions.shape[0])}
+        has_lang = "lang" in batch
+        splits = {"vis": (0, n_vis)} if n_vis else {}
+        if has_lang:
+            splits["lang"] = (n_vis, actions.shape[0])
 
-        emb = self.perceptual_encoder(batch["rgb_obs"], deterministic, generator)
-        lang_emb = self.encode_lang(batch["lang"], deterministic, generator)
-        latent_goal = torch.cat([self.visual_goal(emb[:n_vis, -1]),
-                                 self.language_goal(lang_emb, deterministic, generator)])
+        emb = self.encode(batch, deterministic, generator)
+        lang_emb = self.encode_lang(batch["lang"], deterministic, generator) if has_lang else None
+        latent_goal = self.encode_goals(emb, lang_emb, n_vis, deterministic, generator)
 
         pp_state = self.plan_proposal(emb[:, 0], latent_goal)
         pr_state, seq_feat = self.plan_recognition(emb, deterministic, generator)
@@ -153,30 +174,33 @@ class Hulc2(nn.Module):
             metrics[f"action_loss_{m}"] = act[lo:hi].mean()
         kl_loss = sum(metrics[f"kl_loss_{m}"] for m in splits) / len(splits)
         action_loss = sum(metrics[f"action_loss_{m}"] for m in splits) / len(splits)
-        aux_mask = batch["use_for_aux_lang_loss"]
-        if self.use_clip_auxiliary_loss:
+        aux_mask = batch.get("use_for_aux_lang_loss")
+        if self.use_clip_auxiliary_loss and has_lang:
             metrics["lang_clip_loss"] = self.clip_auxiliary_loss(
                 seq_feat[n_vis:], latent_goal[n_vis:], aux_mask)
         metrics.update(self.aux_metrics(emb, batch["robot_obs"], seq_feat[n_vis:], lang_emb,
                                         aux_mask))
-        if self.lang_task_head is not None:
+        if self.lang_task_head is not None and has_lang and "lang_task_id" in batch:
             metrics.update(self.lang_task_metrics(lang_emb, batch["lang_task_id"]))
         metrics.update(kl_loss=kl_loss, action_loss=action_loss, total_loss=kl_loss + action_loss)
         return metrics
 
     def aux_metrics(self, emb: torch.Tensor, robot_obs: torch.Tensor, lang_seq_feat: torch.Tensor,
-                    lang_emb: torch.Tensor, aux_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                    lang_emb: Optional[torch.Tensor],
+                    aux_mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The GCBC aux heads' losses (``hulc2.py:200-215``): the proprio state
-        from the embedding (MSE), the language embedding from the lang rows'
-        sequence features (1 - cosine, over the aux mask), and the MIA
-        discriminator's BCE with ``roll(lang_emb, 1)`` as the negatives."""
+        from the embedding (MSE), and, with lang rows, the language embedding
+        from their sequence features (1 - cosine, over the aux mask) and the
+        MIA discriminator's BCE with ``roll(lang_emb, 1)`` as the negatives."""
         out: Dict[str, torch.Tensor] = {}
         with torch.autocast(device_type=emb.device.type, enabled=False):
-            mask = aux_mask.float()
-            denom = mask.sum().clamp(min=1.0)
             if self.state_decoder is not None:
                 recon = self.state_decoder(emb.float())
                 out["proprio_loss"] = ((recon - robot_obs.float()) ** 2).mean()
+            if lang_emb is None:
+                return out
+            mask = aux_mask.float()
+            denom = mask.sum().clamp(min=1.0)
             if self.bcz_lang_decoder is not None:
                 pred = self.bcz_lang_decoder(lang_seq_feat.float())
                 cos = (l2_normalize(pred, 1e-8) * l2_normalize(lang_emb.float(), 1e-8)).sum(-1)
@@ -192,8 +216,9 @@ class Hulc2(nn.Module):
     def val_forward(self, batch: Dict[str, Dict], kl_beta: float,
                     generator: Optional[torch.Generator] = None,
                     draws: Optional[Dict[str, PolicyDraws]] = None) -> Dict[str, torch.Tensor]:
-        """Validation metrics of one {"vis": ..., "lang": ...} batch, each
-        modality transformed on its own (``hulc2.py:287-337``): the decoder
+        """Validation metrics of one {"vis": ..., "lang": ...} batch (or of one
+        modality alone), each modality transformed on its own
+        (``hulc2.py:287-337``): the decoder
         under a plan sampled from the proposal ("pp") and from the recognition
         network ("pr"), each with its action loss, the MAE of sampled actions
         (total, position, orientation) and the gripper success rate per
@@ -202,16 +227,25 @@ class Hulc2(nn.Module):
         to the plan's noise and the mixture's uniforms (B, S, M, K) and
         (B, S, M); without them the draws come from ``generator``."""
         dec = self._decoder()
-        vis, lang = batch["vis"], batch["lang"]
-        n_vis = vis["actions"].shape[0]
-        rgb_obs = {k: torch.cat([vis["rgb_obs"][k], lang["rgb_obs"][k]]) for k in vis["rgb_obs"]}
-        actions = torch.cat([vis["actions"], lang["actions"]])
-        robot_obs_raw = torch.cat([vis["robot_obs_raw"], lang["robot_obs_raw"]])
-        splits = {"vis": (0, n_vis), "lang": (n_vis, actions.shape[0])}
+        parts = [batch[m] for m in ("vis", "lang") if m in batch]
 
-        lang_emb = self.encode_lang(lang["lang"])
-        emb = self.perceptual_encoder(rgb_obs)
-        latent_goal = torch.cat([self.visual_goal(emb[:n_vis, -1]), self.language_goal(lang_emb)])
+        def cat(values):
+            return torch.cat(values) if len(values) > 1 else values[0]
+
+        obs = {group: {k: cat([p[group][k] for p in parts]) for k in parts[0].get(group, {})}
+               for group in ("rgb_obs", "depth_obs")}
+        obs["robot_obs"] = cat([p["robot_obs"] for p in parts])
+        actions = cat([p["actions"] for p in parts])
+        robot_obs_raw = cat([p["robot_obs_raw"] for p in parts])
+        n_vis = batch["vis"]["actions"].shape[0] if "vis" in batch else 0
+        splits = {"vis": (0, n_vis)} if n_vis else {}
+        lang_emb = None
+        if "lang" in batch:
+            splits["lang"] = (n_vis, actions.shape[0])
+            lang_emb = self.encode_lang(batch["lang"]["lang"])
+
+        emb = self.encode(obs)
+        latent_goal = self.encode_goals(emb, lang_emb, n_vis)
         pp_state = self.plan_proposal(emb[:, 0], latent_goal)
         pr_state, seq_feat = self.plan_recognition(emb)
 
@@ -237,9 +271,9 @@ class Hulc2(nn.Module):
             kl = self.balanced_kl_per_sample(pp_state, pr_state)
             for m, (lo, hi) in splits.items():
                 metrics[f"{m}_kl_loss"] = kl_beta * kl[lo:hi].mean()
-        if self.use_clip_auxiliary_loss:
+        if self.use_clip_auxiliary_loss and lang_emb is not None:
             metrics["val_pred_clip_loss"] = self.clip_auxiliary_loss(
-                seq_feat[n_vis:], latent_goal[n_vis:], lang["use_for_aux_lang_loss"])
+                seq_feat[n_vis:], latent_goal[n_vis:], batch["lang"]["use_for_aux_lang_loss"])
         return metrics
 
     def _plan_noise(self, draws: Optional[PolicyDraws]) -> Optional[torch.Tensor]:
@@ -330,23 +364,27 @@ class Hulc2(nn.Module):
 
     def policy_step(self, rgb_obs: Dict[str, torch.Tensor], robot_obs_raw: torch.Tensor,
                     goal: Dict, carry: PolicyCarry, generator: Optional[torch.Generator] = None,
-                    draws: Optional[PolicyDraws] = None) -> Tuple[torch.Tensor, PolicyCarry]:
+                    draws: Optional[PolicyDraws] = None,
+                    depth_obs: Optional[Dict[str, torch.Tensor]] = None,
+                    robot_obs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, PolicyCarry]:
         """One rollout step for B envs -> (world-frame action (B, 7), new carry).
 
-        ``rgb_obs`` holds transformed single frames (B, 1, H, W, C) per camera
-        and ``robot_obs_raw`` (B, 1, 15). ``goal`` is {"lang": token ids
-        (B, 77)}, which pass through the text tower on every step as in the
-        JAX package, or sentence embeddings (B, E) for a policy without a
-        tower, or {"rgb_obs": goal frames} for visual goals. A new plan (none
+        ``rgb_obs`` holds transformed single frames (B, 1, H, W, C) per camera,
+        ``depth_obs`` (B, 1, H, W) per depth camera, ``robot_obs_raw`` (B, 1,
+        15) and ``robot_obs`` the processed proprio (B, 1, P) that a proprio
+        encoder reads. ``goal`` is {"lang": token ids (B, 77)}, which pass
+        through the text tower on every step as in the JAX package, or
+        sentence embeddings (B, E) for a policy without a tower, or
+        {"rgb_obs": goal frames[, "depth_obs", "robot_obs"]} for visual goals. A new plan (none
         for GCBC) and both action samples are drawn on every step; envs whose
         step counter is a multiple of ``replan_freq`` take the new plan and
         goal and restart the decoder from a zero state (``hulc2.py:394-400``)."""
         dec = self._decoder()
-        emb = self.perceptual_encoder(rgb_obs)
+        emb = self.encode({"rgb_obs": rgb_obs, "depth_obs": depth_obs, "robot_obs": robot_obs})
         if "lang" in goal:
             latent_goal = self.language_goal(self.encode_lang(goal["lang"]))
         else:
-            latent_goal = self.visual_goal(self.perceptual_encoder(goal["rgb_obs"])[:, -1])
+            latent_goal = self.visual_goal(self.encode(goal)[:, -1])
         if self.use_plan:
             new_plan = self.dist.sample(self.plan_proposal(emb[:, 0], latent_goal).float(),
                                         self._plan_noise(draws), generator)

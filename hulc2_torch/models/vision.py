@@ -16,6 +16,8 @@ static encoder's keypoints can be extended by their sine and cosine
 (``spatial_softmax_temp=None``: a parameter of shape (1,), initialised to
 one); the gripper encoder's trunk is ``nature_cnn``, ``cnn_3_layers`` or
 ``cnn_4_layers``; ``VisionConv`` is the nature trunk with the same head.
+Every encoder takes its input's channel count (``in_channels``: 3 for RGB,
+1 for the depth cameras' encoders).
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from hulc2_torch.models.layers import Conv, Dense, dropout, get_activation, l2_n
 from hulc2_torch.ops.spatial import spatial_softmax
 
 
-def _conv_trunk(act: str) -> list:
-    return [Conv(3, 32, 8, stride=4), get_activation(act), Conv(32, 64, 4, stride=2),
+def _conv_trunk(act: str, in_channels: int = 3) -> list:
+    return [Conv(in_channels, 32, 8, stride=4), get_activation(act), Conv(32, 64, 4, stride=2),
             get_activation(act), Conv(64, 64, 3, stride=1), get_activation(act)]
 
 
@@ -42,29 +44,30 @@ def _out_hw(hw: int, convs) -> int:
 NATURE_CONVS = ((8, 4), (4, 2), (3, 1))
 
 
-def nature_cnn(input_hw: int, act: str = "ReLU") -> nn.Sequential:
+def nature_cnn(input_hw: int, act: str = "ReLU", in_channels: int = 3) -> nn.Sequential:
     """Nature-DQN trunk -> 128 activated features; the flatten is NCHW, as in
     torch (``vision.py:75``). Indices 0/2/4 are the convs and 7 the linear."""
     flat = 64 * _out_hw(input_hw, NATURE_CONVS) ** 2
-    return nn.Sequential(*_conv_trunk(act), nn.Flatten(), Dense(flat, 128), get_activation(act))
+    return nn.Sequential(*_conv_trunk(act, in_channels), nn.Flatten(), Dense(flat, 128), get_activation(act))
 
 
-def small_cnn(input_hw: int, n_convs: int, act: str = "ReLU") -> nn.Sequential:
+def small_cnn(input_hw: int, n_convs: int, act: str = "ReLU",
+              in_channels: int = 3) -> nn.Sequential:
     """``cnn_3_layers`` (3 convs 3x3 stride 2) or ``cnn_4_layers`` (a fourth
     of stride 1) of 32 channels, NCHW flatten, a linear to 128 without an
     activation (``vision.py:92-123``). Convs at 0, 2, ..., the linear last."""
     convs = [(3, 2)] * 3 + [(3, 1)] * (n_convs - 3)
     layers = []
     for i, (k, s) in enumerate(convs):
-        layers += [Conv(3 if i == 0 else 32, 32, k, stride=s), get_activation(act)]
+        layers += [Conv(in_channels if i == 0 else 32, 32, k, stride=s), get_activation(act)]
     flat = 32 * _out_hw(input_hw, convs) ** 2
     return nn.Sequential(*layers, nn.Flatten(), Dense(flat, 128))
 
 
 GRIPPER_TRUNKS = {
     "nature_cnn": nature_cnn,
-    "cnn_3_layers": lambda hw, act: small_cnn(hw, 3, act),
-    "cnn_4_layers": lambda hw, act: small_cnn(hw, 4, act),
+    "cnn_3_layers": lambda hw, act, c: small_cnn(hw, 3, act, c),
+    "cnn_4_layers": lambda hw, act, c: small_cnn(hw, 4, act, c),
 }
 
 
@@ -92,14 +95,15 @@ class VisionNetwork(_Head):
 
     def __init__(self, visual_features: int = 64, activation_function: str = "ReLU",
                  dropout_vis_fc: float = 0.0, l2_normalize_output: bool = False,
-                 use_sinusoid: bool = False, spatial_softmax_temp: Optional[float] = 1.0):
+                 use_sinusoid: bool = False, spatial_softmax_temp: Optional[float] = 1.0,
+                 in_channels: int = 3):
         super().__init__()
         self.use_sinusoid = use_sinusoid
         if spatial_softmax_temp is None:
             self.temperature = nn.Parameter(torch.ones(1))
         else:
             self.temperature = float(spatial_softmax_temp)
-        self.conv_model = nn.Sequential(*_conv_trunk(activation_function))
+        self.conv_model = nn.Sequential(*_conv_trunk(activation_function, in_channels))
         self.make_head(384 if use_sinusoid else 128, visual_features, activation_function,
                        dropout_vis_fc, l2_normalize_output)
 
@@ -116,11 +120,11 @@ class VisionNetworkGripper(_Head):
 
     def __init__(self, input_hw: int, visual_features: int = 64, conv_encoder: str = "nature_cnn",
                  activation_function: str = "ReLU", dropout_vis_fc: float = 0.0,
-                 l2_normalize_output: bool = False):
+                 l2_normalize_output: bool = False, in_channels: int = 3):
         super().__init__()
         if conv_encoder not in GRIPPER_TRUNKS:
             raise ValueError(f"unknown conv_encoder {conv_encoder!r}; known: {sorted(GRIPPER_TRUNKS)}")
-        self.conv_model = GRIPPER_TRUNKS[conv_encoder](input_hw, activation_function)
+        self.conv_model = GRIPPER_TRUNKS[conv_encoder](input_hw, activation_function, in_channels)
         self.make_head(128, visual_features, activation_function, dropout_vis_fc,
                        l2_normalize_output)
 
@@ -134,6 +138,7 @@ class VisionConv(VisionNetworkGripper):
     (``vision.py:152-171``)."""
 
     def __init__(self, input_hw: int, visual_features: int = 64, activation_function: str = "ReLU",
-                 dropout_vis_fc: float = 0.0, l2_normalize_output: bool = False):
+                 dropout_vis_fc: float = 0.0, l2_normalize_output: bool = False,
+                 in_channels: int = 3):
         super().__init__(input_hw, visual_features, "nature_cnn", activation_function,
-                         dropout_vis_fc, l2_normalize_output)
+                         dropout_vis_fc, l2_normalize_output, in_channels)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
@@ -120,6 +121,73 @@ def resize(imgs: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     if w != out_w:
         x = torch.einsum("nhwc,wW->nhWc", x, _resize_weights(w, out_w, x.device))
     return x
+
+
+def shorter_edge_hw(h: int, w: int, size: int) -> Tuple[int, int]:
+    """torchvision ``Resize(int)``'s output size (``preprocess.py:127-134``):
+    the shorter edge scaled to ``size``, the longer by the same factor, rounded."""
+    if h <= w:
+        return size, max(1, round(w * size / h))
+    return max(1, round(h * size / w)), size
+
+
+def resize_shorter_edge(imgs: torch.Tensor, size: int) -> torch.Tensor:
+    """``Resize(int)`` of NHWC frames; the input itself when it has that
+    size already."""
+    return resize(imgs, *shorter_edge_hw(imgs.shape[1], imgs.shape[2], size))
+
+
+def random_crop(imgs: torch.Tensor, offsets: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Per-frame crop of (out_h, out_w) at ``offsets`` (N, 2), rows then
+    columns, each in [0, H - out_h] and [0, W - out_w] (``preprocess.py:137-147``)."""
+    offsets = offsets.to(imgs.device, torch.long)
+    rows = offsets[:, 0:1] + torch.arange(out_h, device=imgs.device)
+    cols = offsets[:, 1:2] + torch.arange(out_w, device=imgs.device)
+    frame = torch.arange(imgs.shape[0], device=imgs.device)[:, None, None]
+    return imgs[frame, rows[:, :, None], cols[:, None, :]]
+
+
+def add_gaussian_noise(x: torch.Tensor, noise: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    """x + noise * std + mean, ``noise`` standard normal of x's shape
+    (``preprocess.py:104-106``)."""
+    return x + noise.to(x.dtype) * std + mean
+
+
+def add_depth_noise(x: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Multiplicative depth noise: one scalar ``gamma`` (a Gamma(shape) draw
+    divided by the rate) for the whole call (``preprocess.py:109-113``)."""
+    return gamma.to(x.device, x.dtype) * x
+
+
+# YIQ <-> RGB of the jitter's hue rotation (``preprocess.py:177-182``)
+RGB2YIQ = ((0.299, 0.587, 0.114), (0.596, -0.274, -0.322), (0.211, -0.523, 0.312))
+YIQ2RGB = ((1.0, 0.956, 0.621), (1.0, -0.272, -0.647), (1.0, -1.106, 1.703))
+
+
+def color_jitter(imgs: torch.Tensor, uniforms: torch.Tensor, brightness: float = 0.3,
+                 contrast: float = 0.3, hue: float = 0.3, prob: float = 0.3) -> torch.Tensor:
+    """The batch-wide colour jitter of float frames in [0, 1]
+    (``preprocess.py:150-191``). ``uniforms`` holds four U[0, 1) draws: the
+    coin (the whole batch is jittered when it is below ``prob``), the
+    brightness and contrast factors' and the hue angle's. Brightness and
+    contrast scale by factors in [1 - f, 1 + f] (contrast about each frame's
+    mean over all its pixels and channels); the hue rotates the chroma plane
+    of YIQ by an angle in [-hue, hue] x 2 pi; the result is clipped to [0, 1]."""
+    u = uniforms.to(imgs.device, torch.float32)
+    b = u[1] * (2 * brightness) + (1.0 - brightness)
+    c = u[2] * (2 * contrast) + (1.0 - contrast)
+    theta = (u[3] * (2 * hue) - hue) * 2.0 * math.pi
+    out = imgs * b.to(imgs.dtype)
+    mean = out.mean(dim=(-3, -2, -1), keepdim=True)
+    out = mean + (out - mean) * c.to(imgs.dtype)
+    cos_t, sin_t = torch.cos(theta), torch.sin(theta)
+    zero, one = torch.zeros_like(theta), torch.ones_like(theta)
+    rot = torch.stack([torch.stack([one, zero, zero]), torch.stack([zero, cos_t, -sin_t]),
+                       torch.stack([zero, sin_t, cos_t])])
+    m = (torch.tensor(YIQ2RGB, device=imgs.device) @ rot
+         @ torch.tensor(RGB2YIQ, device=imgs.device)).to(imgs.dtype)
+    out = torch.clamp(out @ m.T, 0.0, 1.0)
+    return torch.where(u[0] < prob, out, imgs)
 
 
 def shift_normalize_plain(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, mean: Stat,

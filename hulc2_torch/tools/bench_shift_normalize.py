@@ -5,9 +5,12 @@
 For each camera of three launches per step -- the flagship's train step
 (``rand_shift_96``: 2048 frames of 96x96x3 with pad 4, and 2048 of 64x64x3
 with pad 3), ``cfg_low_level``'s train step (``rand_shift``: 2048 of
-200x200x3 with pad 10, 2048 of 84x84x3 with pad 4) and its validation step
-per modality at pad 0 (1024 frames of each) -- bf16 out, it times the
-kernel, its plain PyTorch
+200x200x3 with pad 10, 2048 of 84x84x3 with pad 4), its validation step
+per modality at pad 0 (1024 frames of each), and the static camera of the
+other transform presets (``real_world``: 2048 of 200x200x3 at pad 0 with
+mean 0 and std 1; ``real_world_square``: 2048 of 150x200x3 with pad 6;
+``clip``: 2048 of 224x224x3 with pad 10 and CLIP's channel statistics)
+-- bf16 out, it times the kernel, its plain PyTorch
 version, ``imgs.to(torch.bfloat16)`` (PyTorch's elementwise cast, which moves
 the same bytes) and ``imgs.clone()`` (a device-to-device copy, whose TB/s is
 the card's streaming rate for a plain copy). Each time is one pair of CUDA
@@ -44,9 +47,15 @@ FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 SHAPES = {"rgb_static": (2048, 96, 4), "rgb_gripper": (2048, 64, 3)}  # frames, side, pad
 RAND_SHIFT_SHAPES = {"rgb_static": (2048, 200, 10), "rgb_gripper": (2048, 84, 4)}
 RAND_SHIFT_VAL_SHAPES = {"rgb_static": (1024, 200, 0), "rgb_gripper": (1024, 84, 0)}
-STEPS = {"rand_shift_96 train": SHAPES, "rand_shift train": RAND_SHIFT_SHAPES,
-         "rand_shift val": RAND_SHIFT_VAL_SHAPES}
 MEAN, STD = [0.5], [0.5]
+CLIP_MEAN, CLIP_STD = [0.48145466, 0.4578275, 0.40821073], [0.26862954, 0.26130258, 0.27577711]
+# frames, height, width, pad, mean, std of the static camera's train kernel run
+PRESET_SHAPES = {"real_world": (2048, 200, 200, 0, [0.0], [1.0]),
+                 "real_world_square": (2048, 150, 200, 6, [0.0], [1.0]),
+                 "clip": (2048, 224, 224, 10, CLIP_MEAN, CLIP_STD)}
+STEPS = {"rand_shift_96 train": SHAPES, "rand_shift train": RAND_SHIFT_SHAPES,
+         "rand_shift val": RAND_SHIFT_VAL_SHAPES,
+         "presets train": {f"{k} rgb_static": v for k, v in PRESET_SHAPES.items()}}
 LAUNCHES = 50
 SETS = 4  # 4 x 57 MB of static frames: each set is out of L2 when its turn comes
 SPIN_CYCLES = 1 << 25  # ~17 ms at 1.98 GHz; lengthened while the host needs longer to enqueue
@@ -94,28 +103,39 @@ def rotating(fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     return call
 
 
-def make_sets(n: int, hw: int, pad: int, count: int, dev: torch.device, seed: int) -> List[Set]:
+def full_shape(shape: tuple) -> tuple:
+    """(n, h, w, pad, mean, std) of a (n, side, pad) or a full shape."""
+    if len(shape) == 3:
+        n, hw, pad = shape
+        return n, hw, hw, pad, MEAN, STD
+    return shape
+
+
+def make_sets(n: int, hw: int, pad: int, count: int, dev: torch.device, seed: int,
+              w: Optional[int] = None) -> List[Set]:
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [(torch.randint(0, 256, (n, hw, hw, 3), generator=g, device=dev, dtype=torch.uint8),
+    return [(torch.randint(0, 256, (n, hw, w or hw, 3), generator=g, device=dev,
+                           dtype=torch.uint8),
              torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device=dev, dtype=torch.int32))
             for _ in range(count)]
 
 
-def bound(n: int, hw: int, out_bytes: int) -> Tuple[float, str]:
-    """(ms, what bounds it) for one launch: each input byte read once, each
-    output element written once, 2 fp32 flops per element."""
-    elems = n * hw * hw * 3
+def bound(n: int, hw: int, out_bytes: int, w: Optional[int] = None) -> Tuple[float, str]:
+    """(ms, what bounds it) for one launch of (n, hw, w or hw, 3) frames:
+    each input byte read once, each output element written once, 2 fp32
+    flops per element."""
+    elems = n * hw * (w or hw) * 3
     t_bytes = (elems * (1 + out_bytes) + n * 2 * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * elems / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_fn(pad: int) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    return lambda imgs, off: preprocess.random_shift_normalize(imgs, off, pad, MEAN, STD)
+def kernel_fn(pad: int, mean=MEAN, std=STD) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    return lambda imgs, off: preprocess.random_shift_normalize(imgs, off, pad, mean, std)
 
 
-def plain_fn(pad: int) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    return lambda imgs, off: preprocess.shift_normalize_plain(imgs, off, pad, MEAN, STD)
+def plain_fn(pad: int, mean=MEAN, std=STD) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    return lambda imgs, off: preprocess.shift_normalize_plain(imgs, off, pad, mean, std)
 
 
 def cast_fn(imgs: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
@@ -166,13 +186,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     summary: Dict = {"card": card}
     cases = [(f"{step} {cam}", shape) for step, shapes in STEPS.items() for cam, shape in shapes.items()]
-    for seed, (cam, (n, hw, pad)) in enumerate(cases):
-        sets = make_sets(n, hw, pad, SETS, dev, seed)
-        bound_ms, _ = bound(n, hw, 2)
-        variants = {"kernel": kernel_fn(pad), "plain": plain_fn(pad), "cast": cast_fn,
-                    "copy": copy_fn}
+    for seed, (cam, shape) in enumerate(cases):
+        n, hw, w, pad, mean, std = full_shape(shape)
+        sets = make_sets(n, hw, pad, SETS, dev, seed, w)
+        bound_ms, _ = bound(n, hw, 2, w)
+        variants = {"kernel": kernel_fn(pad, mean, std), "plain": plain_fn(pad, mean, std),
+                    "cast": cast_fn, "copy": copy_fn}
         order = ["kernel", "plain", "cast", "copy"]
-        if args.baseline is not None:
+        if args.baseline is not None and (mean, std) == (MEAN, STD):
             variants["baseline"] = baseline_fn(args.baseline, pad)
             want = preprocess.shift_normalize_plain(*sets[0], pad, MEAN, STD)
             if not torch.equal(variants["baseline"](*sets[0]), want):
@@ -191,7 +212,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         line = ", ".join(f"{k} {row[k]:.4f} ms ({100 * bound_ms / row[k]:.1f}% of bound)"
                          for k in variants if k != "copy")
         line += f"; a device copy of the input moves {copy_tb_s:.3f} TB/s"
-        print(f"{cam} {n}x{hw}x{hw}x3 pad {pad} bf16, bound {bound_ms:.4f} ms: {line}", flush=True)
+        print(f"{cam} {n}x{hw}x{w}x3 pad {pad} bf16, bound {bound_ms:.4f} ms: {line}", flush=True)
         for k, ts in row["runs"].items():
             print(f"  {k} in turn order: " + ", ".join(f"{t:.4f}" for t in ts), flush=True)
     print(json.dumps(summary), flush=True)

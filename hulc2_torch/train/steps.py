@@ -1,17 +1,19 @@
 """The fused train step and the fused rollout steps (``hulc2_tpu/train/steps.py``).
 
-Train step (``:24-88``): concatenate the raw uint8 vis and lang windows, run
-the transform (one shift_normalize launch per RGB camera over all B*S
-frames), the model forward under bf16 autocast, the loss with the CLIP and
+Train step (``:24-88``): concatenate the raw uint8 vis and lang windows (a
+single-modality batch is transformed alone), run the transform (one
+shift_normalize launch per RGB camera over all B*S frames), the model
+forward under bf16 autocast, the loss with the CLIP and
 aux betas, backward through autograd, the gradients clipped by their global
 norm where the config asks for it, and one optimizer update at the
 schedule's learning rate. Returns the metrics, ``loss`` and ``grad_norm``
 (before clipping, as in JAX) included, as detached tensors on the device.
 
 Rollout steps (``:146``, ``:178``): one call per env step for a batch of envs,
-under ``torch.inference_mode()``: [render the frames from the env states,]
-the val transform (one shift_normalize launch at pad 0 per camera), the
-policy step, then the gripper binarized to +-1. They return the device
+under ``torch.inference_mode()``: [render the frames (and depth_static) from
+the env states,] the val transform (one shift_normalize launch at pad 0 per
+RGB camera), the policy step on the rgb and depth frames and the processed
+robot_obs, then the gripper binarized to +-1. They return the device
 action without waiting for it.
 """
 from __future__ import annotations
@@ -41,14 +43,15 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
                     clip_loss_beta: float = 3.0, aux_betas: Optional[Dict[str, float]] = None,
                     device=None, scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     gradient_clip_norm: Optional[float] = None) -> Callable:
-    """fn(raw_batch, generator, kl_beta, offsets=None, gumbel=None) -> metrics.
+    """fn(raw_batch, generator, kl_beta, gumbel=None, draws=None) -> metrics.
 
     ``raw_batch`` is {"vis": window dict, "lang": window dict}, or one batch
     with [vis; lang] rows already fused, as the device-store loader yields it
     (``hulc2_tpu/train/steps.py:41-47``: n_vis is its action rows less its
-    lang rows). ``offsets`` and ``gumbel`` replace the crop offsets and the
-    plan sampler's draw (the parity tests hand in the same draws as the JAX
-    side). Raises unless the model lives on ``device`` (CUDA unless
+    lang rows), or a single modality's {"vis": ...} or {"lang": ...}.
+    ``draws`` and ``gumbel`` replace the transform's draws (the crop
+    offsets among them, ``data/device_transforms``) and the plan sampler's
+    draw (the parity tests hand in the same draws as the JAX side). Raises unless the model lives on ``device`` (CUDA unless
     ``device="cpu"`` is asked for).
     """
     device = resolve_device(device)
@@ -63,18 +66,21 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
     zero_fill = any(g.get("weight_decay", 0.0) for g in optimizer.param_groups)
 
     def step(raw_batch: Dict, generator: torch.Generator,
-             kl_beta: float, offsets: Optional[Dict[str, torch.Tensor]] = None,
-             gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             kl_beta: float, gumbel: Optional[torch.Tensor] = None,
+             draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         if "actions" in raw_batch:  # fused on the host or by the store's gather
             fused = raw_batch
             n_vis = fused["actions"].shape[0] - fused["lang"].shape[0]
+        elif len(raw_batch) == 1:  # one modality (vision_only, lang_only)
+            fused = raw_batch.get("vis", raw_batch.get("lang"))
+            n_vis = fused["actions"].shape[0] if "vis" in raw_batch else 0
         else:
             vis, lang = raw_batch["vis"], raw_batch["lang"]
             n_vis = vis["actions"].shape[0]
             # fuse BEFORE the transform: the uint8 concat moves a quarter of the bytes
             fused = {k: torch.cat([vis[k], lang[k]], dim=0) for k in vis if k in lang}
             fused.update({k: lang[k] for k in LANG_KEYS if k in lang})
-        batch = transform(fused, generator, offsets)
+        batch = transform(fused, generator, draws)
         model.train()
         with torch.autocast(device_type=device.type, dtype=torch.bfloat16, enabled=use_autocast):
             metrics = model(batch, kl_beta, n_vis, deterministic=False, generator=generator,
@@ -139,9 +145,11 @@ def _autocast(model: Hulc2, device: torch.device):
 def make_fused_policy_step(model: Hulc2, transform: Callable) -> Callable:
     """fn(raw, goal, carry, generator, draws=None) -> (action (B, 7), carry).
 
-    ``raw`` holds (B, 1, H, W, 3) uint8 frames per camera and
-    ``robot_obs_raw`` (B, 1, 15) on the model's device; ``goal`` is
-    {"lang": token ids (B, 77)} or a visual goal (``Hulc2.policy_step``)."""
+    ``raw`` holds (B, 1, H, W, 3) uint8 frames per camera, (B, 1, H, W)
+    depth maps per depth camera, ``robot_obs_raw`` (B, 1, 15) and, when the
+    observation space names it, ``scene_obs`` (B, 1, 24) on the model's
+    device; ``goal`` is {"lang": token ids (B, 77)} or a visual goal
+    (``Hulc2.policy_step``)."""
     device = next(model.parameters()).device
 
     def step(raw: Dict[str, torch.Tensor], goal: Dict, carry: PolicyCarry,
@@ -150,18 +158,23 @@ def make_fused_policy_step(model: Hulc2, transform: Callable) -> Callable:
         with torch.inference_mode(), _autocast(model, device):
             tfd = transform(raw, generator)
             action, carry = model.policy_step(tfd["rgb_obs"], tfd["robot_obs_raw"], goal, carry,
-                                              generator, draws)
+                                              generator, draws, depth_obs=tfd["depth_obs"],
+                                              robot_obs=tfd["robot_obs"])
             return _binarize_gripper(action), carry
 
     return step
 
 
 def make_fused_render_policy_step(model: Hulc2, transform: Callable, render_fn: Callable,
-                                  rgb_keys: Sequence[str]) -> Callable:
+                                  rgb_keys: Sequence[str], depth_keys: Sequence[str] = ()) -> Callable:
     """fn(state, goal, carry, generator, draws=None) -> (action (B, 7), carry),
     where ``state`` = {"robot_obs": (B, 15), "scene_obs": (B, 24)} float32 on
-    the model's device: the frames are rendered on the device
-    (``envs/render_torch.py``), then the step of ``make_fused_policy_step``."""
+    the model's device: the frames of ``rgb_keys`` and the depth maps of
+    ``depth_keys`` are rendered on the device (``envs/render_torch.py``;
+    ``hulc2_tpu/train/steps.py:198-199``), then the step of
+    ``make_fused_policy_step``. The state's scene_obs goes to the transform
+    too, which reads it when the observation space names it; JAX's render
+    step drops it (``:196-201``)."""
     device = next(model.parameters()).device
     policy_step = make_fused_policy_step(model, transform)
 
@@ -171,8 +184,9 @@ def make_fused_render_policy_step(model: Hulc2, transform: Callable, render_fn: 
         with torch.inference_mode():
             robot = state["robot_obs"].float()
             frames = render_fn(state["scene_obs"].float(), robot)
-            raw = {k: frames[k][:, None] for k in rgb_keys}
+            raw = {k: frames[k][:, None] for k in list(rgb_keys) + list(depth_keys)}
             raw["robot_obs_raw"] = robot[:, None]
+            raw["scene_obs"] = state["scene_obs"].float()[:, None]
             raw["actions"] = torch.zeros((robot.shape[0], 1, 7), dtype=torch.float32,
                                          device=device)
             return policy_step(raw, goal, carry, generator, draws)

@@ -13,6 +13,8 @@ An explicit loop around the port's train and val steps, with
   timeout-and-resubmit contract of a cluster scheduler), validation skipped;
 - per-epoch validation (``trainer.limit_val_batches``) and a checkpoint
   every epoch, every step kept (``save_top_k: -1``);
+- the training split's statistics in ``<run_dir>/statistics.json``, which
+  the eval's agent normalises robot_obs with;
 - ``trainer.limit_train_batches``, ``log_every_n_steps`` and ``max_steps``.
 
 The batches come through ``DevicePrefetcher`` from the datamodule's training
@@ -43,9 +45,10 @@ import torch
 
 from hulc2_torch.core.checkpoint import CheckpointManager, save_run_config
 from hulc2_torch.core.metrics import MetricsLogger
-from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
+from hulc2_torch.data.device_transforms import make_batch_transform
 from hulc2_torch.data.loader import DevicePrefetcher, to_device
-from hulc2_torch.models.build import build_policy
+from hulc2_torch.data.statistics import save_statistics
+from hulc2_torch.models.build import build_policy_for
 from hulc2_torch.models.hulc2 import Hulc2
 from hulc2_torch.train.kl_schedule import make_kl_schedule
 from hulc2_torch.train.optim import make_optimizer, make_scheduler, schedule_value
@@ -87,9 +90,7 @@ class Trainer:
         self.device = resolve_device(device)
         set_precision_flags()
         self.seed = int(cfg["training"].get("seed", 42))
-        sizes = camera_sizes(cfg["datamodule"]["transforms"])
-        self.model = build_policy(cfg["model"], gripper_hw=sizes["rgb_gripper"],
-                                  static_hw=sizes["rgb_static"], seed=self.seed).to(self.device)
+        self.model = build_policy_for(cfg, seed=self.seed).to(self.device)
         opt_cfg = cfg["model"]["optimizer"]
         self.optimizer = make_optimizer(self.model.parameters(), opt_cfg)
         # the schedule's length as the JAX trainer estimates it (trainer.py:64-68):
@@ -138,6 +139,8 @@ class Trainer:
     def fit(self, max_epochs: Optional[int] = None, max_steps: Optional[int] = None) -> FitResult:
         cfg, tcfg = self.cfg, self.cfg.get("trainer") or {}
         save_run_config(self.run_dir, cfg)
+        # the eval normalises robot_obs with the statistics the run trained on
+        save_statistics(self.run_dir, self.dm.stats["training"])
         mlog = MetricsLogger(self.run_dir)
         previous = self._install_signal_handlers()
         try:
@@ -191,7 +194,8 @@ class Trainer:
                     total_steps += 1
                     epoch_batches += 1
                     since_log += 1
-                    n_samples += raw["actions"].shape[0]
+                    n_samples += sum(b["actions"].shape[0] for b in (
+                        raw.values() if "actions" not in raw else [raw]))
                     if total_steps % log_every == 0:
                         names = sorted(metrics)
                         values = torch.stack([metrics[k].float() for k in names]).tolist()

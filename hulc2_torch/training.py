@@ -47,7 +47,7 @@ from hulc2_torch.core.config import compose, options
 from hulc2_torch.data.datamodule import Hulc2DataModule
 from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
 from hulc2_torch.data.random_data import RandomWindowBatches
-from hulc2_torch.models.build import build_policy
+from hulc2_torch.models.build import build_policy_for
 from hulc2_torch.models.clip_text import ClipTextTransformer
 from hulc2_torch.models.hulc2 import Hulc2
 from hulc2_torch.train.optim import make_optimizer, make_scheduler
@@ -73,8 +73,7 @@ class SyntheticRun:
         seed = cfg["seed"]
         dm_cfg, model_cfg = cfg["datamodule"], cfg["model"]
         sizes = camera_sizes(dm_cfg["transforms"])
-        self.model = build_policy(model_cfg, gripper_hw=sizes["rgb_gripper"],
-                                  static_hw=sizes["rgb_static"], seed=seed).to(device)
+        self.model = build_policy_for(cfg).to(device)
         opt_cfg = model_cfg["optimizer"]
         optimizer = make_optimizer(self.model.parameters(), opt_cfg)
         bf16 = self.model.compute_dtype == torch.bfloat16 and device.type == "cuda"
@@ -91,7 +90,9 @@ class SyntheticRun:
             sizes["rgb_static"], sizes["rgb_gripper"], dm_cfg["action_space"],
             int(model_cfg.get("lang_task_classes", 34)), seed=seed, device=device,
             lang_dim=None if isinstance(self.model.lang_net, ClipTextTransformer)
-            else model_cfg["language_goal"]["in_features"])
+            else model_cfg["language_goal"]["in_features"],
+            depth_keys=dm_cfg["observation_space"]["depth_obs"],
+            scene_obs="scene_obs" in dm_cfg["observation_space"]["state_obs"])
         self.generator = torch.Generator(device=device).manual_seed(seed + 1)
         self.kl_beta = cfg["loss"]["kl_beta"]
 

@@ -228,21 +228,32 @@ def clip_text(p: Mapping, layers: int) -> SD:
     return out
 
 
+def perceptual_encoder(pe: Mapping) -> SD:
+    """The encoders of the cameras the flax ``ConcatEncoders`` has params
+    for (a camera it does not encode has none): the static and depth_static
+    ones a ``VisionNetwork`` or, with a ``trunk``, a ``VisionConv``; the
+    gripper and depth_gripper ones a ``VisionNetworkGripper``. The proprio
+    slice has no parameters."""
+    sd: SD = {}
+    for cam in ("rgb_static", "depth_static", "rgb_gripper", "depth_gripper"):
+        if cam in pe:
+            enc = pe[cam]
+            sd.update(_prefixed(f"perceptual_encoder.{cam}_encoder",
+                                vision_network_gripper(enc) if "trunk" in enc
+                                else vision_network(enc)))
+    return sd
+
+
 def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch.Tensor]:
     """The JAX ``Hulc2`` flax variables ({"params": ...}) -> the port's
-    ``state_dict``, for every model ``models/build.py`` builds: the encoders
-    and trunks, the transformer, BiLSTM or BiRNN posterior, the decoder and
+    ``state_dict``, for every model ``models/build.py`` builds: the camera
+    encoders present (depth ones and no gripper one included) and trunks, the transformer, BiLSTM or BiRNN posterior, the decoder and
     its rnn, and whichever of the language network (CLIP text tower or
     ``lang_mlp``), the CLIP loss's projections and temperature, and the
     state, BC-Z, MIA and task heads the model has."""
     p = params["params"]
-    pe = p["perceptual_encoder"]
-    static = pe["rgb_static"]
     sd: SD = {
-        **_prefixed("perceptual_encoder.rgb_static_encoder",
-                    vision_network_gripper(static) if "trunk" in static else vision_network(static)),
-        **_prefixed("perceptual_encoder.rgb_gripper_encoder",
-                    vision_network_gripper(pe["rgb_gripper"])),
+        **perceptual_encoder(p["perceptual_encoder"]),
         **_prefixed("plan_proposal", plan_proposal(p["plan_proposal"])),
         **_prefixed("plan_recognition", plan_recognition(p["plan_recognition"],
                                                          model_cfg["plan_recognition"])),

@@ -98,6 +98,13 @@ def make_draws(rng: np.random.Generator, cfg: dict) -> tuple:
     return offsets, gumbel
 
 
+def shift_draws(offsets: dict) -> dict:
+    """The batch transform's ``draws`` that give each camera's shift the
+    (N, 2) int32 numpy ``offsets``: the shift is op 1 of the rand_shift and
+    rand_shift_96 train pipelines (a val pipeline draws nothing at op 1)."""
+    return {cam: {1: torch.from_numpy(off)} for cam, off in offsets.items()}
+
+
 def fuse(raw: dict) -> dict:
     vis, lang = raw["vis"], raw["lang"]
     return {k: np.concatenate([vis[k], lang[k]]) for k in vis if k in lang}

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import optax
 
 import hulc2_tpu.configs  # noqa: F401  (registers the JAX groups)
-from _torch_port_common import _jax_shift_normalize, random_flax_params
+from _torch_port_common import _jax_shift_normalize, random_flax_params, shift_draws
 from hulc2_torch.configs.flagship import FLAGSHIP_OVERRIDES, flagship_config
 from hulc2_torch.core import config as cfg_lib
 from hulc2_torch.data.datamodule import Hulc2DataModule
@@ -117,16 +117,21 @@ def test_rand_shift_transform_equals_jax(monkeypatch, low_dir, train):
     want = jtf(jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in raw.items()})
     tf = make_batch_transform(cfg["observation_space"], cfg["proprioception_dims"], "rand_shift",
                               train=train, stats=load_statistics(low_dir / "training"))
-    got = tf({k: torch.from_numpy(v) for k, v in raw.items()}, None,
-             {k: torch.from_numpy(v) for k, v in offsets.items()})
+    got = tf({k: torch.from_numpy(v) for k, v in raw.items()}, None, shift_draws(offsets))
     for cam in SIZES:
         assert got["rgb_obs"][cam].shape == (b, s, SIZES[cam], SIZES[cam], 3)
         np.testing.assert_allclose(got["rgb_obs"][cam].numpy(), np.asarray(want["rgb_obs"][cam]),
                                    atol=1e-6, rtol=0, err_msg=cam)
     np.testing.assert_allclose(got["robot_obs"].numpy(), np.asarray(want["robot_obs"]), atol=1e-6)
-    small = {**raw, "rgb_static": raw["rgb_static"][:, :, :96, :96]}
-    with pytest.raises(ValueError, match="'rand_shift' preset expects 200x200"):
-        tf({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in small.items()}, None, None)
+    # frames of another size go through the preset's resize (ported since;
+    # once refused here): 96 px static frames come out at 200 px
+    small = {**raw, "rgb_static": np.ascontiguousarray(raw["rgb_static"][:, :, :96, :96])}
+    out = tf({k: torch.from_numpy(v) for k, v in small.items()}, None, shift_draws(offsets))
+    assert out["rgb_obs"]["rgb_static"].shape == (b, s, 200, 200, 3)
+    if not train:  # no shift: the resize and normalize alone, against JAX's
+        want = jtf(jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in small.items()})
+        np.testing.assert_allclose(out["rgb_obs"]["rgb_static"].numpy(),
+                                   np.asarray(want["rgb_obs"]["rgb_static"]), atol=1e-5, rtol=0)
 
 
 # ---- the policy without a text tower -------------------------------------- #
@@ -213,8 +218,7 @@ def test_low_level_forward_matches_jax(monkeypatch):
     holder["g"] = jnp.asarray(gumbel)
     tf = make_batch_transform(cfg["datamodule"]["observation_space"],
                               cfg["datamodule"]["proprioception_dims"], "rand_shift")
-    batch = tf({k: torch.from_numpy(v) for k, v in fused.items()}, None,
-               {k: torch.from_numpy(v) for k, v in offsets.items()})
+    batch = tf({k: torch.from_numpy(v) for k, v in fused.items()}, None, shift_draws(offsets))
     want = jax.jit(lambda p, b: jmodel.apply(p, b, 0.01, False, 2,
                                              rngs={"sample": jax.random.PRNGKey(0)}))(
         params, _jax_batch(fused, offsets, batch["robot_obs"].numpy()))
@@ -280,7 +284,7 @@ def test_three_low_level_train_steps_track_jax(monkeypatch, low_dir):
         params, opt_state, want = jstep(params, opt_state, _jax_batch(raw, offsets, robot),
                                         jnp.asarray(gumbel), loss_cfg["kl_beta"])
         got = tstep({k: torch.from_numpy(v) for k, v in raw.items()}, None, loss_cfg["kl_beta"],
-                    {k: torch.from_numpy(v) for k, v in offsets.items()}, torch.from_numpy(gumbel))
+                    gumbel=torch.from_numpy(gumbel), draws=shift_draws(offsets))
         assert "lang_task_loss" not in got
         for name in ("loss", "total_loss", "action_loss", "kl_loss", "lang_clip_loss", "grad_norm"):
             np.testing.assert_allclose(float(got[name]), float(want[name]), rtol=1e-3, atol=1e-5,

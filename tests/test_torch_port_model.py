@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from _torch_port_common import (
     SMALL_OVERRIDES, build_both, install_gumbel_rsample, jax_batch, make_draws, make_raw_batch,
-    random_flax_params, small_config, torch_raw,
+    random_flax_params, shift_draws, small_config, torch_raw,
 )
 from hulc2_torch.configs.flagship import FLAGSHIP_OVERRIDES, flagship_config
 from hulc2_torch.data.device_transforms import make_batch_transform
@@ -139,7 +139,7 @@ def test_hulc2_forward_metrics_match_jax(monkeypatch):
     tf = make_batch_transform(dm["observation_space"], dm["proprioception_dims"], dm["transforms"])
     traw = torch_raw(raw)
     batch = tf({k: torch.cat([traw["vis"][k], traw["lang"][k]]) for k in traw["vis"]}, None,
-               {k: torch.from_numpy(v) for k, v in offsets.items()})
+               shift_draws(offsets))
     batch.update({k: traw["lang"][k] for k in ("lang", "use_for_aux_lang_loss", "lang_task_id")})
     with torch.no_grad():
         got = tmodel(batch, 0.01, 2, deterministic=False, gumbel=torch.from_numpy(gumbel))
@@ -201,7 +201,7 @@ def test_small_overrides_apply():
 
 def test_build_policy_refuses_unported_options():
     cfg = flagship_config()
-    cfg["model"]["perceptual_encoder"]["depth_static"] = {"_name_": "vision_network",
-                                                          "visual_features": 64}
-    with pytest.raises(NotImplementedError, match="depth"):
+    cfg["model"]["perceptual_encoder"]["tactile"] = {"_name_": "tactile_encoder",
+                                                     "visual_features": 64}
+    with pytest.raises(NotImplementedError, match="tactile"):
         build_policy(cfg["model"])

@@ -25,7 +25,7 @@ import jax
 import jax.numpy as jnp
 
 import hulc2_tpu.configs  # noqa: F401  (registers the JAX groups)
-from _torch_port_common import _jax_shift_normalize, random_flax_params
+from _torch_port_common import _jax_shift_normalize, random_flax_params, shift_draws
 from hulc2_torch.agents.hulc2_agent import Hulc2Agent
 from hulc2_torch.core import config as cfg_lib
 from hulc2_torch.data.device_transforms import camera_sizes, make_batch_transform
@@ -584,12 +584,12 @@ def test_three_train_steps_track_jax(monkeypatch, case):
         b, s = fused["actions"].shape[:2]
         offsets, noise = _offsets(rng, b * s), _noise(rng, cfg, b)
         tbatch = {k: torch.from_numpy(v) for k, v in fused.items()}
-        robot = _transform(cfg)(tbatch, None, {k: torch.from_numpy(v) for k, v in offsets.items()})
+        robot = _transform(cfg)(tbatch, None, shift_draws(offsets))
         params, opt_state, want = jstep(params, opt_state,
                                         _jax_batch(fused, offsets, robot["robot_obs"].numpy()),
                                         jnp.asarray(noise), kl_beta)
-        got = tstep(tbatch, None, kl_beta, {k: torch.from_numpy(v) for k, v in offsets.items()},
-                    torch.from_numpy(noise))
+        got = tstep(tbatch, None, kl_beta, gumbel=torch.from_numpy(noise),
+                    draws=shift_draws(offsets))
         assert set(want) - {"loss", "grad_norm"} <= set(got), sorted(set(want) - set(got))
         for name, w in want.items():
             np.testing.assert_allclose(float(got[name]), float(w), rtol=1e-3, atol=1e-5,

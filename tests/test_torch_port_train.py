@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from _torch_port_common import (
     build_both, install_gumbel_rsample, jax_batch, jax_train_step_fn, make_draws, make_raw_batch,
-    small_config, torch_raw,
+    shift_draws, small_config, torch_raw,
 )
 from hulc2_torch import training
 from hulc2_torch.data.device_transforms import make_batch_transform
@@ -57,8 +57,8 @@ def test_three_train_steps_track_jax(monkeypatch):
         offsets, gumbel = make_draws(rng, cfg)
         params, opt_state, want = jstep(params, opt_state, jax_batch(raw, offsets),
                                         jnp.asarray(gumbel), loss_cfg["kl_beta"])
-        got = tstep(torch_raw(raw), None, loss_cfg["kl_beta"],
-                    {k: torch.from_numpy(v) for k, v in offsets.items()}, torch.from_numpy(gumbel))
+        got = tstep(torch_raw(raw), None, loss_cfg["kl_beta"], gumbel=torch.from_numpy(gumbel),
+                    draws=shift_draws(offsets))
         for k in ("loss", "total_loss", "action_loss", "kl_loss", "lang_clip_loss",
                   "lang_task_loss", "grad_norm"):
             # fp32 both sides; Adam's first update amplifies near-zero gradients

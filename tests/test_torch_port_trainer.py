@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from _torch_port_common import (
     PADS, SMALL_OVERRIDES, _jax_shift_normalize, build_both, install_gumbel_rsample,
-    jax_train_step_fn, make_draws, make_raw_batch, small_config, torch_raw,
+    jax_train_step_fn, make_draws, make_raw_batch, shift_draws, small_config, torch_raw,
 )
 from _torch_port_dataset import write_calvin_dir
 from hulc2_torch import training
@@ -187,7 +187,7 @@ def test_three_disk_train_steps_track_jax(monkeypatch, calvin96):
                                                          dm_cfg["proprioception_dims"]),
                                         jnp.asarray(gumbel), loss_cfg["kl_beta"])
         got = tstep({k: torch.from_numpy(v) for k, v in raw.items()}, None, loss_cfg["kl_beta"],
-                    {k: torch.from_numpy(v) for k, v in offsets.items()}, torch.from_numpy(gumbel))
+                    gumbel=torch.from_numpy(gumbel), draws=shift_draws(offsets))
         for name in ("loss", "total_loss", "action_loss", "kl_loss", "lang_clip_loss",
                      "lang_task_loss", "grad_norm"):
             np.testing.assert_allclose(float(got[name]), float(want[name]), rtol=1e-3, atol=1e-5,
