@@ -146,7 +146,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    statistics) bit for bit with its device time and bound; then
    ``datamodule/datasets=vision_only`` and ``=lang_only``, SINGLE_STEPS
    steps each from (r), 2 launches a train and a val step;
-34. the kernels line, the card line, and the final JSON line.
+34. (ab) the pretrained encoders and the real-robot root, from here on: for
+   a small fp32 model of each (``cfg_low_level_rw``'s frozen R3M stream,
+   ``static_clip`` with a narrow RN50 and a narrow ViT tower, ``vision_resnet``
+   on the static camera with R3M on the gripper, ``vision_resnet_aff``, and
+   ``static_rgb_tactile`` with 6-channel tactile frames of 160x120 added to
+   the batch), two train steps on the card and on the CPU on one batch of
+   the host loader from (r), same weights, transform draws and plan noise:
+   losses within rel 1e-5;
+35. (ac) ``python -m hulc2_torch.training --config-name cfg_low_level_rw``
+   from (r) at full width through the process loader
+   (``datamodule.loader_isolation=process``), RW_STEPS steps and RW_VAL val
+   batches, the only overrides those (r)'s data forces (its action key and
+   ``lang_folder``): shift_normalize 2 x train steps + 4 x val steps, the
+   frozen R3M trunk bit for bit as initialised, no ``hulc2_pl_*`` segment
+   left; then its eval as in (t), twice per dispatch; then the kernel at the
+   real-robot preset's shapes (200 px and 84 px, pad 0, mean 0, std 1) bit
+   for bit with its device time and bound;
+36. (ad) the process loader against the thread loader on the same
+   ``cfg_low_level_rw`` config in turns (thread, process, thread, process):
+   each turn's first ISOLATION_BATCHES batches bit for bit equal to the
+   first turn's, through the prefetcher into the train step; per turn the
+   median step wall time, loader wait and device busy; no segment left;
+37. (ae) ``static_clip`` at full width with the RN50 and the ViT-B/32
+   tower (``datamodule.transforms=clip``, 224 px), ENCODER_STEPS synthetic
+   train steps each through ``python -m hulc2_torch.training --synthetic``:
+   losses finite, the frozen tower bit for bit as initialised, 2 launches a
+   step; the step's wall time and device busy;
+38. (af) ``static_rgb_tactile`` the same way, with 6-channel tactile frames
+   of 160x120 that the ``resize 70`` op resizes: 1 launch a step;
+39. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -262,6 +291,35 @@ OBS_CASES = {
     "frame_skip_diff": ["datamodule/frame_skip=diff"] + SKIP_SMALL,
     "vision_only": ["datamodule/datasets=vision_only"],
     "lang_only": ["datamodule/datasets=lang_only"],
+}
+# the pretrained encoders and the real-robot root: (r)'s data writes
+# rel_actions and lang_annotations, the only overrides cfg_low_level_rw needs
+RW_DATA = ['datamodule.observation_space.actions=["rel_actions"]',
+           "datamodule.lang_folder=lang_annotations"]
+RW_RUN = BUILD / "chip_smoke_rw"
+RW_STEPS, RW_VAL = 10, 2
+RW_SHAPES = {"real_world_r3m rgb_static": (2048, 200, 200, 0, [0.0], [1.0]),
+             "real_world_r3m rgb_gripper": (2048, 84, 84, 0, [0.0], [1.0])}
+ISOLATION_BATCHES, BUSY_STEPS = 10, 3
+ENCODER_STEPS = 10
+ENCODER_RUN = BUILD / "chip_smoke_encoders"
+TACTILE_HW = (160, 120)
+CLIP_SMALL = ('model.perceptual_encoder.rgb_static.tower_kwargs='
+              '{"layers": [1, 1, 1, 1], "width": 32, "heads": 4}')
+VIT_SMALL = ('model.perceptual_encoder.rgb_static.tower_kwargs='
+             '{"patch_size": 20, "width": 64, "layers": 2, "heads": 2}')
+TACTILE = ["model/perceptual_encoder=static_rgb_tactile",
+           "datamodule/observation_space=lang_rgb_static_tactile_abs_act"]
+PRETRAINED_CASES = {
+    "rw_r3m": ("cfg_low_level_rw", RW_DATA),
+    "clip_rn50": ("cfg_low_level", ["model/perceptual_encoder=static_clip", CLIP_SMALL]),
+    "clip_vit": ("cfg_low_level", ["model/perceptual_encoder=static_clip",
+                                   'model.perceptual_encoder.rgb_static.model_name="ViT-B/32"',
+                                   VIT_SMALL]),
+    "resnet_static_r3m_gripper": ("cfg_low_level", ["model/perceptual_encoder/rgb_static=resnet",
+                                                    "model/perceptual_encoder/rgb_gripper=r3m"]),
+    "resnet_aff": ("cfg_low_level", ["model/perceptual_encoder/rgb_static=resnet_aff"]),
+    "tactile": ("cfg_low_level", TACTILE),
 }
 LOW_SMALL = [
     "model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",
@@ -1316,13 +1374,14 @@ def phase_low_reference(dev: torch.device) -> None:
 def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
                     run_dir: Path = LOW_RUN, root: str = "cfg_low_level", overrides=(),
                     steps: int = LOW_STEPS, val: int = LOW_VAL, per_step: int = 2,
-                    per_val: int = 4) -> dict:
+                    per_val: int = 4, child_loader: bool = False) -> dict:
     """(s) ``python -m hulc2_torch.training --config-name cfg_low_level`` from
     (r)'s dataset at full width through the host loader (and (v), (w), (y),
     (z), (aa): the same entry point for another root and overrides, whose
     train and val steps launch the kernel ``per_step`` and ``per_val``
-    times); returns the launch counts of the run, its median step and
-    loader wait."""
+    times; with ``child_loader`` the training batches are read in the process
+    loader's child, where no read is seen here); returns the launch counts
+    of the run, its median step and loader wait."""
     from hulc2_torch import kernels, training
     from hulc2_torch.data import native_loader
 
@@ -1360,7 +1419,7 @@ def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
         fail(f"no checkpoint of the {what} run")
     if result.store_nbytes is not None or result.model.lang_net is not None:
         fail(f"the {what} run used a device store or built a language network")
-    if not reads:
+    if not reads and not child_loader:
         fail(f"the {what} run read no frame through the native loader")
     want = per_step * steps + per_val * val
     if launches["shift_normalize"] != want:
@@ -1747,16 +1806,258 @@ def phase_presets(dev: torch.device) -> float:
     return worst
 
 
-def phase_kernel_presets(dev: torch.device) -> dict:
+def shm_segments() -> list:
+    from hulc2_torch.data.process_loader import SEGMENT_PREFIX, SHM_DIR
+
+    return sorted(p.name for p in Path(SHM_DIR).glob(f"{SEGMENT_PREFIX}*"))
+
+
+def device_busy_ms(step, n: int) -> float:
+    """Device-busy ms per call of ``step`` (the union of the kernels' and
+    copies' intervals under ``torch.profiler``, as ``tools/profile_train``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hulc2_torch.tools.profile_train import _union_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not events:
+        fail("the profiler recorded no device activity")
+    return _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / n
+
+
+def phase_pretrained_reference(dev: torch.device) -> None:
+    """(ab) Two fp32 train steps of a small model of each pretrained encoder
+    preset on the card and on the CPU, same weights, one fixed batch of the
+    host loader from (r) (with 6-channel tactile frames added), same
+    transform draws and plan noise; the card runs the kernel, the CPU its
+    plain version."""
+    import hulc2_torch.configs  # noqa: F401  (registers the config groups)
+    from hulc2_torch.core.config import compose
+    from hulc2_torch.data.datamodule import Hulc2DataModule
+    from hulc2_torch.data.device_transforms import TRANSFORM_PRESETS, make_batch_transform
+    from hulc2_torch.models.build import build_policy_for
+    from hulc2_torch.train.optim import make_optimizer
+    from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    data = [f"datamodule.root_data_dir={LOW_DATA}"]
+    dm = Hulc2DataModule(compose("cfg_low_level", LOW_SMALL + data)["datamodule"], seed=0,
+                         device="cpu")
+    dm.setup()
+    raw = {k: torch.from_numpy(v) for k, v in next(iter(dm.fused_train_iter())).items()}
+    b, s = raw["actions"].shape[:2]
+    g = torch.Generator().manual_seed(100)
+    raw["rgb_tactile"] = torch.randint(0, 256, (b, s, *TACTILE_HW, 6), generator=g,
+                                       dtype=torch.uint8)
+    t0, worst = time.perf_counter(), 0.0
+    for i, (name, (root, overrides)) in enumerate(PRETRAINED_CASES.items()):
+        cfg = compose(root, LOW_SMALL + data + overrides)
+        dm_cfg, mc = cfg["datamodule"], cfg["model"]
+        pipelines = TRANSFORM_PRESETS[dm_cfg["transforms"]]["train"]
+        keys = dm_cfg["observation_space"]["rgb_obs"]
+        case_raw = {k: v for k, v in raw.items() if k not in ("rgb_static", "rgb_gripper",
+                                                               "rgb_tactile") or k in keys}
+        steps = [(seeded_draws({k: pipelines.get(k, []) for k in keys}, case_raw, 110 + i + k),
+                  -torch.log(-torch.log(torch.rand((b, 32, 32), generator=g)))) for k in range(2)]
+        losses = {}
+        for device in (torch.device("cpu"), dev):
+            model = build_policy_for(cfg, seed=5).to(device)
+            tf = make_batch_transform(dm_cfg["observation_space"], dm_cfg["proprioception_dims"],
+                                      dm_cfg["transforms"], stats=dm.stats["training"])
+            step = make_train_step(model, make_optimizer(model.parameters(), mc["optimizer"]), tf,
+                                   cfg["loss"]["clip_auxiliary_loss_beta"],
+                                   aux_betas_from_loss_cfg(cfg["loss"]), device=device)
+            losses[device.type] = [step(to_dev(case_raw, device), None, 0.01,
+                                        gumbel=noise.to(device),
+                                        draws={k: {j: d.to(device) for j, d in v.items()}
+                                               for k, v in draws.items()})["loss"].item()
+                                   for draws, noise in steps]
+        rel = max(abs(a - c) / max(abs(a), 1e-12) for a, c in zip(losses["cpu"], losses["cuda"]))
+        worst = max(worst, rel)
+        encoders = {k: type(v).__name__ for k, v in model.perceptual_encoder.named_children()}
+        print(f"[pretrained_reference] {name} ({root} {' '.join(overrides)}): {encoders}; "
+              f"cpu {losses['cpu']} cuda {losses['cuda']} (largest relative difference "
+              f"{rel:.2e}; rel tol 1e-5)", flush=True)
+        for a, c in zip(losses["cpu"], losses["cuda"]):
+            if not (math.isfinite(a) and math.isclose(a, c, rel_tol=1e-5)):
+                fail(f"card and CPU losses of the {name} encoders disagree: {losses}")
+    print(f"[pretrained_reference] {len(PRETRAINED_CASES)} presets in "
+          f"{time.perf_counter() - t0:.1f} s; largest relative loss difference {worst:.2e}",
+          flush=True)
+
+
+def phase_rw_run(dev: torch.device, card: str) -> tuple:
+    """(ac) ``cfg_low_level_rw`` from (r) at full width through the process
+    loader, then its eval; the frozen R3M trunk unchanged, no segment left."""
+    from hulc2_torch.models.build import build_policy_for
+
+    train = phase_low_train(dev, card, "rw_train", RW_RUN, "cfg_low_level_rw",
+                            RW_DATA + ["datamodule.loader_isolation=process"], RW_STEPS, RW_VAL,
+                            child_loader=True)
+    left = shm_segments()
+    if left:
+        fail(f"the process loader left shared-memory segments: {left[:4]}")
+    enc = train["model"].perceptual_encoder.rgb_static_encoder
+    if type(enc).__name__ != "VisionR3M" or train["cfg"]["datamodule"]["loader_isolation"] != "process":
+        fail("the rw run built no R3M static encoder or ran no process loader")
+    init = build_policy_for(train["cfg"], seed=int(train["cfg"]["training"].get("seed", 42)))
+    trunk = {k: v.cpu() for k, v in enc.r3m.state_dict().items()}
+    same = all(torch.equal(trunk[k], v) for k, v in
+               init.perceptual_encoder.rgb_static_encoder.r3m.state_dict().items())
+    head_moved = not torch.equal(enc.fc2.weight.cpu(),
+                                 init.perceptual_encoder.rgb_static_encoder.fc2.weight)
+    print(f"[rw_train] frozen R3M trunk ({len(trunk)} tensors) as initialised: {same}; its FC "
+          f"head moved: {head_moved}; no hulc2_pl_* segment left", flush=True)
+    if not same or not head_moved:
+        fail("the rw run moved its frozen R3M trunk or left its head")
+    del train["model"], enc, init
+    evaluation = phase_low_eval(dev, card, "rw_eval", RW_RUN, RW_STEPS)
+    return train, evaluation
+
+
+def phase_isolation(dev: torch.device, card: str) -> dict:
+    """(ad) The same ``cfg_low_level_rw`` trainer fed by the thread loader and
+    the process loader in turns: the first ISOLATION_BATCHES batches of each
+    turn bit for bit equal to the first turn's; per turn the step's wall
+    time and loader wait (median), then the device busy of BUSY_STEPS more
+    steps; returns the launches of all turns' steps."""
+    import hulc2_torch.configs  # noqa: F401  (registers the config groups)
+    from hulc2_torch import kernels
+    from hulc2_torch.core.config import compose
+    from hulc2_torch.data.datamodule import Hulc2DataModule
+    from hulc2_torch.data.loader import DevicePrefetcher
+    from hulc2_torch.train.trainer import Trainer
+
+    base = compose("cfg_low_level_rw", RW_DATA + [f"datamodule.root_data_dir={LOW_DATA}"])
+    first, turns, trainer, step = None, [], None, None
+    kernels.reset_launch_counts()
+    for turn, isolation in enumerate(("none", "process", "none", "process")):
+        cfg = json.loads(json.dumps(base))
+        cfg["datamodule"]["loader_isolation"] = isolation
+        dm = Hulc2DataModule(cfg["datamodule"], seed=cfg["seed"], device=dev)
+        dm.setup()
+        if trainer is None:
+            trainer = Trainer(cfg, dm, run_dir=None, device=dev)
+            step = trainer.make_train_step()
+        t_start = time.perf_counter()
+        it = DevicePrefetcher(dm.fused_train_iter(), dev)
+        batches, wall, wait = [], [], []
+        try:
+            for i in range(ISOLATION_BATCHES + BUSY_STEPS):
+                torch.cuda.synchronize(dev)
+                t0, w0 = time.perf_counter(), it.wait_s
+                raw = next(it)
+                if i < ISOLATION_BATCHES:
+                    batches.append({k: v.clone() for k, v in raw.items()})
+                    step(raw, trainer.generator, 0.01)
+                    torch.cuda.synchronize(dev)
+                    wall.append(1e3 * (time.perf_counter() - t0))
+                    wait.append(1e3 * (it.wait_s - w0))
+                elif i == ISOLATION_BATCHES:
+                    rest = [raw] + [next(it) for _ in range(BUSY_STEPS - 1)]
+                    busy = device_busy_ms(lambda: step(rest.pop(0), trainer.generator, 0.01),
+                                          BUSY_STEPS)
+                    break
+        finally:
+            it.close()
+            dm.close()
+        if first is None:
+            first = batches
+        else:
+            for j, (a, b) in enumerate(zip(batches, first)):
+                bad = [k for k in b if not torch.equal(a[k], b[k])]
+                if bad or set(a) != set(b):
+                    fail(f"turn {turn} ({isolation}) batch {j} differs from the thread loader's "
+                         f"in {bad}")
+        del batches
+        row = {"loader": "thread" if isolation == "none" else "process",
+               "step_ms": statistics.median(wall[WARM_STEPS:]),
+               "wait_ms": statistics.median(wait[WARM_STEPS:]), "busy_ms": busy,
+               "turn_s": time.perf_counter() - t_start}
+        turns.append(row)
+        print(f"[isolation] turn {turn}: {row['loader']} loader, {ISOLATION_BATCHES} batches "
+              f"bit for bit equal to turn 0's; step {row['step_ms']:.2f} ms (median of steps "
+              f"{WARM_STEPS}..{ISOLATION_BATCHES - 1}, spread {min(wall[WARM_STEPS:]):.1f}-"
+              f"{max(wall[WARM_STEPS:]):.1f}), loader wait {row['wait_ms']:.2f} ms, device busy "
+              f"{busy:.2f} ms a step; turn {row['turn_s']:.1f} s with start-up; on {card}",
+              flush=True)
+    launches = dict(kernels.LAUNCHES)
+    want = 2 * (ISOLATION_BATCHES + BUSY_STEPS) * len(turns)
+    if launches["shift_normalize"] != want:
+        fail(f"shift_normalize launched {launches['shift_normalize']} times in the turns' "
+             f"steps, expected {want}")
+    left = shm_segments()
+    if left:
+        fail(f"the process loader left shared-memory segments: {left[:4]}")
+    del first
+    print(f"[isolation] no hulc2_pl_* segment left; launches {launches}", flush=True)
+    return {"launches": launches, "turns": turns}
+
+
+def phase_encoder_run(dev: torch.device, card: str, tag: str, overrides: list,
+                      per_step: int, frozen: str) -> dict:
+    """(ae), (af) ENCODER_STEPS synthetic train steps of ``cfg_low_level``
+    with ``overrides`` at full width through ``python -m hulc2_torch.training
+    --synthetic``, counts reset just before and read just after: losses
+    finite, the ``frozen`` submodule of the perceptual encoder bit for bit as
+    initialised, ``per_step`` launches a step; then BUSY_STEPS more steps of
+    the same run under the profiler for the device busy."""
+    from hulc2_torch import kernels, training
+    from hulc2_torch.core.config import compose
+    from hulc2_torch.models.build import build_policy_for
+
+    run_dir = ENCODER_RUN / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--synthetic", "--config-name", "cfg_low_level", "--max-steps", str(ENCODER_STEPS),
+            "--device", "cuda", "--run-dir", str(run_dir), *overrides]
+    kernels.reset_launch_counts()
+    result = training.main(argv)
+    torch.cuda.synchronize(dev)
+    launches = dict(kernels.LAUNCHES)
+    losses = [line["loss"] for line in result.history]
+    if len(losses) != ENCODER_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"{tag}: losses {losses}")
+    if launches["shift_normalize"] != per_step * ENCODER_STEPS:
+        fail(f"{tag}: shift_normalize launched {launches['shift_normalize']} times in "
+             f"{ENCODER_STEPS} steps, expected {per_step * ENCODER_STEPS}")
+    cfg = compose("cfg_low_level", overrides)
+    init = dict(build_policy_for(cfg).perceptual_encoder.named_modules())[frozen].state_dict()
+    now = dict(result.model.perceptual_encoder.named_modules())[frozen].state_dict()
+    if not all(torch.equal(now[k].cpu(), v) for k, v in init.items()):
+        fail(f"{tag}: the frozen {frozen} moved")
+    step_ms = statistics.median(line["step_ms"] for line in result.history[WARM_STEPS:])
+    del result, now
+    run = training.SyntheticRun(cfg, dev)
+    batches = [run.next_batch() for _ in range(BUSY_STEPS + 1)]
+    run.step(batches.pop())
+    busy = device_busy_ms(lambda: run.step(batches.pop()), BUSY_STEPS)
+    print(f"[{tag}] {' '.join(overrides)} at full width, synthetic windows: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; frozen {frozen} ({len(init)} tensors) as "
+          f"initialised; step {step_ms:.2f} ms (median of steps {WARM_STEPS}..{ENCODER_STEPS - 1}, "
+          f"host clock), device busy {busy:.2f} ms a step ({100 * (1 - busy / step_ms):.1f}% "
+          f"idle); launches {launches}; on {card}", flush=True)
+    del run, batches
+    return {"launches": launches, "step_ms": step_ms, "busy_ms": busy}
+
+
+def phase_kernel_presets(dev: torch.device, shapes: dict = None) -> dict:
     """(aa) The kernel at the other presets' static-camera shapes (the
-    static-only run's are (q)'s) against its plain version, bit for bit,
-    fp32 and bf16; then its device time, the plain version's and a bf16
-    cast's beside the bytes bound."""
+    static-only run's are (q)'s; (ac): ``shapes``, the real-robot preset's)
+    against its plain version, bit for bit, fp32 and bf16; then its device
+    time, the plain version's and a bf16 cast's beside the bytes bound."""
     from hulc2_torch.ops import preprocess
     from hulc2_torch.tools import bench_shift_normalize as bench
 
     rows = {}
-    for seed, (preset, (n, h, w, pad, mean, std)) in enumerate(bench.PRESET_SHAPES.items()):
+    for seed, (preset, (n, h, w, pad, mean, std)) in enumerate(
+            (shapes or bench.PRESET_SHAPES).items()):
         sets = bench.make_sets(n, h, pad, bench.SETS, dev, 50 + seed, w)
         imgs, offsets = sets[0]
         err = 0.0
@@ -1780,6 +2081,35 @@ def phase_kernel_presets(dev: torch.device) -> dict:
               f"{plain_ms:.4f} ms; bf16 cast of the same bytes {cast_ms:.4f} ms", flush=True)
         del sets, imgs, offsets, got, want
     return rows
+
+
+def slice_phases(dev: torch.device, card: str) -> tuple:
+    """(ab)-(af); returns their paths' launch counts by name and (ac)'s kernel rows."""
+    phase_pretrained_reference(dev)
+    rw_train, rw_eval = phase_rw_run(dev, card)
+    rw_kernel = phase_kernel_presets(dev, RW_SHAPES)
+    isolation = phase_isolation(dev, card)
+    rn50 = phase_encoder_run(dev, card, "clip_rn50", ["model/perceptual_encoder=static_clip",
+                                                       "datamodule.transforms=clip"], 2,
+                             "rgb_static_encoder.clip")
+    vit = phase_encoder_run(dev, card, "clip_vit", [
+        "model/perceptual_encoder=static_clip", "datamodule.transforms=clip",
+        'model.perceptual_encoder.rgb_static.model_name="ViT-B/32"'], 2,
+        "rgb_static_encoder.clip")
+    tactile = phase_encoder_run(dev, card, "tactile", TACTILE, 1, "tactile_encoder.trunk")
+    turns = isolation["turns"]
+    print(f"[pretrained] cfg_low_level_rw (process loader) step {rw_train['step_ms']:.2f} ms "
+          f"({rw_train['wait_ms']:.2f} ms waiting), eval {rw_eval['rate']:.1f} env-steps/s; "
+          f"turns (loader: step / wait / busy ms): " + "; ".join(
+              f"{t['loader']} {t['step_ms']:.2f} / {t['wait_ms']:.2f} / {t['busy_ms']:.2f}"
+              for t in turns)
+          + f"; synthetic steps (step / busy ms): static_clip RN50 {rn50['step_ms']:.2f} / "
+          f"{rn50['busy_ms']:.2f}, ViT-B/32 {vit['step_ms']:.2f} / {vit['busy_ms']:.2f}, "
+          f"static_rgb_tactile {tactile['step_ms']:.2f} / {tactile['busy_ms']:.2f}; on {card}",
+          flush=True)
+    return ({"rw_train": rw_train, "rw_eval": rw_eval, "isolation_turns": isolation,
+             "clip_rn50_train": rn50, "clip_vit_train": vit, "tactile_train": tactile},
+            rw_kernel)
 
 
 def main() -> int:
@@ -1870,6 +2200,8 @@ def main() -> int:
                          "scene_train": scene_train, "scene_eval": scene_eval,
                          "vision_only_train": single["vision_only"],
                          "lang_only_train": single["lang_only"]})
+    slice_paths, rw_kernel = slice_phases(dev, card)
+    option_paths.update(slice_paths)
 
     entry = {
         "name": "shift_normalize",
@@ -1883,7 +2215,8 @@ def main() -> int:
         + sum(r["launches"]["shift_normalize"] for r in option_paths.values()),
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err,
                            low_kernel["max_abs_err"],
-                           *(r["max_abs_err"] for r in preset_kernel.values())),
+                           *(r["max_abs_err"] for r in preset_kernel.values()),
+                           *(r["max_abs_err"] for r in rw_kernel.values())),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -1906,13 +2239,15 @@ def main() -> int:
         "rand_shift_step": {k: low_kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                        "max_abs_err")},
         "preset_static_launch": preset_kernel,
+        "real_world_r3m_launch": rw_kernel,
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
           f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
           f"{kernel['cast_ms']:.4f} ms); eval_dispatch holds the same per eval dispatch at pad 0, "
           f"rand_shift_step per cfg_low_level train step (200 px pad 10 and 84 px pad 4), "
           f"preset_static_launch per static-camera launch of the real_world, real_world_square "
-          f"and clip presets",
+          f"and clip presets, real_world_r3m_launch per launch of cfg_low_level_rw's train "
+          f"step (static and gripper)",
           flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

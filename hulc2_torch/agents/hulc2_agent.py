@@ -52,6 +52,11 @@ class Hulc2Agent:
         if "depth_gripper" in self._depth_keys:
             raise NotImplementedError("the fake env renders no gripper depth: depth_gripper is "
                                       "not an observation of its rollouts")
+        tactile = [k for k in ("rgb_tactile", "depth_tactile")
+                   if k in obs_space["rgb_obs"] or k in self._depth_keys]
+        if tactile:
+            raise NotImplementedError(f"the fake env renders no tactile frames: {tactile} are "
+                                      "not observations of its rollouts")
         bf16 = self.device.type == "cuda" and model.compute_dtype == torch.bfloat16
         self._transform = make_batch_transform(
             obs_space, dm_cfg["proprioception_dims"], dm_cfg.get("transforms", "rand_shift_96"),

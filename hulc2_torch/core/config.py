@@ -45,6 +45,12 @@ CREATABLE = frozenset({
     "model.use_state_recons", "model.use_bc_z_auxiliary_loss", "model.use_mia_auxiliary_loss",
     "model.use_lang_task_auxiliary_loss", "model.lang_task_classes",
     "model.optimizer.gradient_clip_norm",
+    # the pretrained encoders' precision and CLIP's tower sizes
+    # (hulc2_tpu/models/build.py:57-95, pretrained_vision.py:56)
+    "model.perceptual_encoder.rgb_static.compute_dtype",
+    "model.perceptual_encoder.rgb_gripper.compute_dtype",
+    "model.perceptual_encoder.tactile.compute_dtype",
+    "model.perceptual_encoder.rgb_static.tower_kwargs",
 })
 
 

@@ -20,8 +20,10 @@ both splits (the device store refuses it); ``datamodule.datasets`` with one
 modality off (``vision_only``, ``lang_only``) builds that modality's
 datasets only, and its training batches come from the per-modality
 ``BatchLoader`` as {modality: batch}, as in JAX (the device store refuses
-it, as JAX's does). Not ported, and refused by name: the subprocess loader
-(``loader_isolation=process``).
+it, as JAX's does). ``datamodule.loader_isolation=process`` assembles the
+host path's training batches in a subprocess (``data/process_loader.py``),
+as JAX routes it (``hulc2_tpu/data/datamodule.py:138-154``): before the
+device store, which it overrides, and refused with one modality.
 """
 from __future__ import annotations
 
@@ -50,31 +52,36 @@ class Hulc2DataModule:
         self.device = resolve_device(device)
         self.root = Path(dm_cfg["root_data_dir"])
         self.use_shm_cache = use_shm_cache
-        if dm_cfg.get("loader_isolation", "none") != "none":
-            raise NotImplementedError("datamodule.loader_isolation is not ported")
+        self.isolation = dm_cfg.get("loader_isolation", "none")
+        if self.isolation not in ("none", "process"):
+            raise ValueError(f"unknown datamodule.loader_isolation {self.isolation!r}")
         ds = dm_cfg.get("datasets") or {}
         self.modalities = tuple(m for m in MODALITIES if ds.get(m, True))
         if not self.modalities:
             raise ValueError("datamodule.datasets disables every modality")
         if dm_cfg.get("frame_skip") and dm_cfg.get("device_store", False):
             raise NotImplementedError("the device-store gather does not support frame_skip")
-        if len(self.modalities) == 1 and dm_cfg.get("device_store", False):
-            raise NotImplementedError("the device store needs both modalities: a single-modality "
-                                      "config trains through the per-modality loader")
+        if len(self.modalities) == 1 and (dm_cfg.get("device_store", False)
+                                          or self.isolation == "process"):
+            raise NotImplementedError("the device store and the process loader need both "
+                                      "modalities: a single-modality config trains through "
+                                      "the per-modality loader")
         self.stats: Dict[str, DatasetStatistics] = {}
         self._stores: Dict[str, object] = {}
         self.datasets: Dict[str, WindowDataset] = {}
         self.device_store: Optional[DeviceFrameStore] = None
         self._train_loader = None
 
-    def setup(self) -> None:
+    def setup(self, splits=("training", "validation")) -> None:
+        """The splits' statistics, frame stores and datasets (the process
+        loader's child sets up the training split alone)."""
         obs = self.cfg["observation_space"]
         frame_keys = (list(obs["rgb_obs"]) + list(obs["depth_obs"]) + list(obs["state_obs"])
                       + list(obs["actions"]))
         if "robot_obs" not in frame_keys:
             frame_keys.append("robot_obs")
-        host_train = not self.cfg.get("device_store", False)
-        for split in ("training", "validation"):
+        host_train = not self.cfg.get("device_store", False) or self.isolation == "process"
+        for split in splits:
             split_dir = self.root / split
             self.stats[split] = load_statistics(split_dir)
             npz = NpzFrameStore(split_dir, frame_keys)
@@ -112,8 +119,9 @@ class Hulc2DataModule:
         store: the upload happens here, after which the RAM cache's image
         arrays are dropped (only the small keys are read per step), and the
         loader gathers on the device. Without: the host ``FusedBatchLoader``,
-        its buffers pinned on the card. With one modality: its
-        ``BatchLoader`` (``ModalityLoader``)."""
+        its buffers pinned on the card, or with ``loader_isolation=process``
+        the ``ProcessFusedLoader``. With one modality: its ``BatchLoader``
+        (``ModalityLoader``)."""
         if self._train_loader is not None:
             return self._train_loader
         if len(self.modalities) == 1:
@@ -123,6 +131,15 @@ class Hulc2DataModule:
                 num_threads=self.cfg.get("num_workers", 4)))
             return self._train_loader
         vis, lang = self.datasets["vis_training"], self.datasets["lang_training"]
+        if self.isolation == "process":
+            from hulc2_torch.data.process_loader import ProcessFusedLoader
+
+            self._train_loader = ProcessFusedLoader(
+                self.cfg, vis, lang, self._batch_size("vis"), self._batch_size("lang"),
+                seed=self.seed, use_shm_cache=self.use_shm_cache,
+                num_threads=self.cfg.get("num_workers", 4),
+                pin_memory=self.device.type == "cuda")
+            return self._train_loader
         if not self.cfg.get("device_store", False):
             self._train_loader = FusedBatchLoader(
                 vis, lang, self._batch_size("vis"), self._batch_size("lang"), seed=self.seed,
@@ -142,8 +159,12 @@ class Hulc2DataModule:
         return self._train_loader
 
     def close(self) -> None:
-        """Close the shared-memory cache of the training split and unlink it
-        if this datamodule made it (otherwise that happens at exit)."""
+        """Stop the process loader, close the shared-memory cache of the
+        training split and unlink it if this datamodule made it (otherwise
+        that happens at exit)."""
+        close = getattr(self._train_loader, "close", None)
+        if close is not None:
+            close()
         if self.use_shm_cache and "training" in self._stores:
             self._stores["training"].cleanup()
 

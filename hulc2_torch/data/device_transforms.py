@@ -20,7 +20,12 @@ over all B*S frames of a window batch:
   ``random_crop``, ``scale_normalize`` and ``normalize`` of float frames,
   ``color_jitter``, ``gaussian_noise`` and ``depth_noise``;
 - depth maps (B, S, H, W), stored float16 and widened here, go through their
-  pipelines as (N, H, W, 1) float frames.
+  pipelines as (N, H, W, 1) float frames;
+- the tactile camera's 6-channel uint8 ``rgb_tactile`` frames take the
+  plain ops (``resize 70``, ``random_crop 64``, ``scale_normalize`` on all
+  six channels in ``rand_shift`` and ``clip``; the raw frames cast to float
+  in the presets without a pipeline for it, as in JAX), and so does
+  ``depth_tactile`` (no preset has a pipeline for it).
 
 Every op that draws takes its draw from ``draws[key][op index]`` when the
 caller hands it in (the parity tests give both frameworks the same draws),
@@ -31,8 +36,8 @@ tensor of the frames' shape for ``gaussian_noise``, the scalar Gamma(shape)
 
 ``process_proprio`` normalises robot_obs, and scene_obs when the
 observation space names it, with the split's statistics, then slices them.
-Observation spaces with a tactile camera, or without ``rgb_static`` (JAX's
-``ConcatEncoders`` always encodes it), are refused by name.
+An observation space without ``rgb_static`` (``state_only``: JAX's
+``ConcatEncoders`` always encodes it) is refused by name.
 """
 from __future__ import annotations
 
@@ -54,7 +59,6 @@ OPS = ("resize", "random_shift", "random_shift_float", "random_crop", "scale_nor
        "normalize", "gaussian_noise", "depth_noise", "color_jitter")
 DRAWS = ("random_shift", "random_shift_float", "random_crop", "gaussian_noise", "depth_noise",
          "color_jitter")
-TACTILE_KEYS = ("rgb_tactile", "depth_tactile")
 
 TRANSFORM_PRESETS = {
     "rand_shift": {
@@ -517,9 +521,6 @@ def make_batch_transform(observation_space: dict, proprio_cfg: Optional[dict],
     docstring); the rest is drawn from ``generator``. With ``train=False``
     the val pipelines run."""
     keys = list(observation_space["rgb_obs"]) + list(observation_space["depth_obs"])
-    tactile = [k for k in keys if k in TACTILE_KEYS]
-    if tactile:
-        raise NotImplementedError(f"tactile cameras {tactile} are not ported")
     if "rgb_static" not in observation_space["rgb_obs"]:
         raise NotImplementedError("an observation space without rgb_static (state_only) is not "
                                   "ported: JAX's ConcatEncoders always encodes rgb_static "

@@ -240,6 +240,12 @@ class FusedBatchLoader:
         else:
             list(pool.map(fill, jobs))
 
+    def _ring(self):
+        """Where batch b is written: slot ``b % RING_SLOTS`` of a ring (an
+        object with ``acquire``, ``batch`` and ``close``, as ``PinnedRing``),
+        or None for fresh arrays per batch."""
+        return PinnedRing(self.specs, self.RING_SLOTS) if self.pin_memory else None
+
     def _assemble(self, pool, ring: Optional[PinnedRing], b: int, vis_idxs, lang_idxs, epoch: int):
         if ring is None:
             out = {k: np.empty(shape, dtype) for k, (shape, dtype) in self.specs.items()}
@@ -255,7 +261,7 @@ class FusedBatchLoader:
         # the JAX loader draws the epoch's order after advancing the counter
         ov, ol = self._orders(self.epoch)
         nb = len(self)
-        ring = PinnedRing(self.specs, self.RING_SLOTS) if self.pin_memory else None
+        ring = self._ring()
 
         def idxs(b):
             return ov[b * self.bv:(b + 1) * self.bv], ol[b * self.bl:(b + 1) * self.bl]

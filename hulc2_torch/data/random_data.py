@@ -8,7 +8,9 @@ Their ``lang`` is CLIP-BPE-shaped token ids, or, with ``lang_dim``, normal
 sentence embeddings of that width for a policy without a text tower. With
 ``depth_keys`` each window carries float16 depth maps of those cameras
 (uniform in [0.5, 2.5] m, the size of its RGB camera), with ``scene_obs`` a
-(S, 24) scene_obs. Each call of
+(S, 24) scene_obs, with ``tactile`` a 6-channel uint8 ``rgb_tactile`` at
+the tactile sensor's raw 160x120 (which every preset's tactile pipeline
+resizes). Each call of
 ``next_batch`` draws a fresh batch from the generator in bulk on the device.
 """
 from __future__ import annotations
@@ -19,17 +21,18 @@ import torch
 
 SOT_TOKEN, EOT_TOKEN = 49406, 49407
 CONTEXT_LENGTH = 77
+TACTILE_HW = (160, 120)  # the tactile sensor's frames (CALVIN, TACO)
 
 
 class RandomWindowBatches:
     def __init__(self, batch_vis: int, batch_lang: int, window: int, static_hw: int = 96,
                  gripper_hw: int = 64, action_dim: int = 7, n_tasks: int = 34,
                  seed: int = 0, device="cuda", lang_dim: Optional[int] = None,
-                 depth_keys: Sequence[str] = (), scene_obs: bool = False):
+                 depth_keys: Sequence[str] = (), scene_obs: bool = False, tactile: bool = False):
         self.batch_vis, self.batch_lang, self.window = batch_vis, batch_lang, window
         self.static_hw, self.gripper_hw = static_hw, gripper_hw
         self.action_dim, self.n_tasks, self.lang_dim = action_dim, n_tasks, lang_dim
-        self.depth_keys, self.scene_obs = tuple(depth_keys), scene_obs
+        self.depth_keys, self.scene_obs, self.tactile = tuple(depth_keys), scene_obs, tactile
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -46,6 +49,9 @@ class RandomWindowBatches:
             hw = self.static_hw if key == "depth_static" else self.gripper_hw
             out[key] = (torch.rand((b, s, hw, hw), generator=g, device=dev) * 2.0
                         + 0.5).to(torch.float16)
+        if self.tactile:
+            out["rgb_tactile"] = torch.randint(0, 256, (b, s, *TACTILE_HW, 6), generator=g,
+                                               device=dev, dtype=torch.uint8)
         if self.scene_obs:
             out["scene_obs"] = torch.randn((b, s, 24), generator=g, device=dev)
         actions = (torch.randn((b, s, self.action_dim), generator=g, device=dev) * 0.3).clamp(-1, 1)

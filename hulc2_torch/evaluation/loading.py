@@ -5,7 +5,8 @@ under ``saved_models/`` gives its parameters (``core/checkpoint.py``).
 ``load_policy`` reads a run of ``python -m hulc2_torch.training``,
 ``run_statistics`` the statistics it trained with (which its eval
 normalises robot_obs with; JAX's fake-env eval hands its agent none),
-``load_affordance`` a run of ``python -m hulc2_torch.affordance.train_affordance``.
+``load_affordance`` a run of ``python -m hulc2_torch.affordance.train_affordance``,
+``load_policy_from_torch_ckpt`` a reference PyTorch-Lightning ``.ckpt``.
 """
 from __future__ import annotations
 
@@ -73,3 +74,21 @@ def load_affordance(run_dir, step: Optional[int] = None, device="cpu", seed: int
     hw = input_hw(cfg["aff_detection"])
     return AffordancePredictor(model.to(torch.device(device)), DepthNorm(**cfg["depth_norm"]),
                                (hw, hw), seed=seed, lang_table=lang_table)
+
+
+
+def load_policy_from_torch_ckpt(ckpt_path, cfg: dict) -> Tuple[Hulc2, dict]:
+    """(model on the CPU, the checkpoint's hyper-parameters) from a reference
+    PyTorch-Lightning ``.ckpt`` (``hulc2_tpu/evaluation/loading.py:158``):
+    the policy ``cfg`` builds, its weights the checkpoint's ``state_dict``.
+    The port's names are the reference's (the language MLP's
+    ``lang_encoder`` is the port's ``lang_net``), so the weights load
+    without conversion; a key missing on either side raises."""
+    from hulc2_torch.utils.convert import load_lightning_checkpoint
+
+    sd, hparams = load_lightning_checkpoint(ckpt_path)
+    renamed = {("lang_net." + k[len("lang_encoder."):] if k.startswith("lang_encoder.") else k): v
+               for k, v in sd.items()}
+    model = build_policy_for(cfg)
+    model.load_state_dict(renamed, strict=True)
+    return model, hparams

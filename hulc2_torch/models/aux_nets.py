@@ -75,3 +75,16 @@ class LangTaskHead(nn.Module):
         x = torch.relu(self.fc0(lang_emb))
         with torch.autocast(device_type=x.device.type, enabled=False):
             return self.fc1(x.float())
+
+
+class ClipProj(nn.Module):
+    """A linear projection of CLIP features (``aux_nets.py:105``; the
+    reference's ``decoders/clip_proj.py``). No policy of either package
+    builds it."""
+
+    def __init__(self, in_features: int, output_dim: int = 512):
+        super().__init__()
+        self.proj = Dense(in_features, output_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x)

@@ -1,18 +1,22 @@
-"""Model config dict -> the port's ``Hulc2`` (``hulc2_tpu/models/build.py:128-297``).
+"""Model config dict -> the port's ``Hulc2`` (``hulc2_tpu/models/build.py:57-297``).
 
-Option for option as the JAX factory builds them: the static encoder
-(``vision_network`` or ``vision_conv``) and the gripper encoder
-(``vision_network_gripper`` with its nature_cnn, cnn_3_layers or
-cnn_4_layers trunk), with their activation, dropout, L2, sinusoid and
-temperature options; discrete or continuous plans; the transformer, BiLSTM
+Option for option as the JAX factory builds them: the camera encoders
+(``vision_network``, ``vision_conv`` and ``vision_network_gripper`` with its
+nature_cnn, cnn_3_layers or cnn_4_layers trunk, with their activation,
+dropout, L2, sinusoid and temperature options; the pretrained architectures
+``vision_r3m``, ``vision_clip``, ``vision_resnet`` and ``vision_resnet_aff``
+on either RGB camera, ``models/pretrained_vision.py``) and the
+``tactile_encoder`` over ``rgb_tactile``; discrete or continuous plans; the transformer, BiLSTM
 or BiRNN posterior; the logistic decoder over a ReLU RNN, GRU, LSTM or MLP,
 with or without a discrete gripper (the deterministic decoder is built as
 JAX builds it, and refused where JAX's ``Hulc2`` would fail); the language
 side the CLIP text tower over token ids, ``lang_mlp`` over precomputed
 embeddings, or none; GCBC (``use_plan=false``); the CLIP aux loss and the
 state, BC-Z, MIA and task-CE heads; the perceptual encoders of the static
-camera, the optional gripper camera, both depth cameras (the same encoder
-families over one channel) and the identity proprio slice.
+camera, the optional gripper camera, both depth cameras (the conv encoder
+families over one channel), the tactile camera and the identity proprio
+slice. The embedding's width counts each encoder's ``visual_features``
+(``perceptual_latent_size``, tactile included).
 
 flax infers every input width at init; the port sizes its layers from the
 real widths: the proprio slice is ``robot_obs[..., :n_state_obs]`` of the
@@ -25,7 +29,6 @@ Where the JAX factory ignores a key, so does the port: the plan proposal's
 ``activation_function``, the transformer's ``position_embedding`` (positions
 are always added), the BiLSTM/BiRNN posteriors' widths (2048, 2 layers),
 ``proj_vis_lang.proj_lang`` (always projected) and ``policy_rnn_dropout_p``.
-Tactile and the pretrained vision encoders raise by name.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ from hulc2_torch.models.layers import init_weights_
 from hulc2_torch.models.perceptual import ConcatEncoders
 from hulc2_torch.models.plan_nets import (PlanProposalNetwork, PlanRecognitionBiLSTM,
                                           PlanRecognitionBiRNN, PlanRecognitionTransformer)
+from hulc2_torch.models.pretrained_vision import (TactileEncoder, VisionClip, VisionR3M,
+                                                  VisionResNet, VisionResNetAff)
 from hulc2_torch.models.vision import VisionConv, VisionNetwork, VisionNetworkGripper
 
 ROBOT_OBS_DIM, SCENE_OBS_DIM = 15, 24
@@ -56,26 +61,51 @@ def _without(cfg: dict, *keys: str) -> dict:
     return {k: v for k, v in cfg.items() if k not in keys}
 
 
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise NotImplementedError(f"{what} is not ported")
+def build_pretrained_encoder(cfg: dict, input_hw: Optional[int]):
+    """``vision_r3m``, ``vision_clip``, ``vision_resnet``, ``vision_resnet_aff``
+    or ``tactile_encoder`` (the JAX factories, ``build.py:57-95``, with
+    their ``compute_dtype``) for
+    frames of ``input_hw`` (which sizes CLIP's positional tables and the
+    ``vision_resnet_aff`` flatten); None for any other name."""
+    name, kw = cfg["_name_"], _without(cfg, "_name_")
+    if name == "vision_r3m":
+        return VisionR3M(**kw)
+    if name == "vision_clip":
+        return VisionClip(input_hw, **kw)
+    if name == "vision_resnet":
+        return VisionResNet(**kw)
+    if name == "vision_resnet_aff":  # flax infers the reference's input_shape
+        return VisionResNetAff(input_hw, **_without(kw, "input_shape"))
+    if name == "tactile_encoder":
+        return TactileEncoder(**kw)
+    return None
 
 
 def build_static_encoder(cfg: dict, static_hw: int, in_channels: int = 3):
-    """A static camera's encoder (``vision_network`` or ``vision_conv``);
-    with one channel, the depth camera's."""
+    """A static camera's encoder (``vision_network``, ``vision_conv`` or a
+    pretrained architecture); with one channel, the depth camera's."""
     name = cfg["_name_"]
     kw = _without(cfg, "_name_")
     if name == "vision_network":
         return VisionNetwork(**kw, in_channels=in_channels)
     if name == "vision_conv":
         return VisionConv(static_hw, **kw, in_channels=in_channels)
-    raise NotImplementedError(f"static encoder {name!r} is not ported")
+    return _rgb_pretrained(cfg, static_hw, in_channels)
 
 
 def build_gripper_encoder(cfg: dict, gripper_hw: int, in_channels: int = 3):
-    _require(cfg["_name_"] == "vision_network_gripper", f"gripper encoder {cfg['_name_']!r}")
-    return VisionNetworkGripper(gripper_hw, **_without(cfg, "_name_"), in_channels=in_channels)
+    if cfg["_name_"] == "vision_network_gripper":
+        return VisionNetworkGripper(gripper_hw, **_without(cfg, "_name_"), in_channels=in_channels)
+    return _rgb_pretrained(cfg, gripper_hw, in_channels)
+
+
+def _rgb_pretrained(cfg: dict, hw: int, in_channels: int):
+    enc = build_pretrained_encoder(cfg, hw) if cfg["_name_"] != "tactile_encoder" else None
+    if enc is None:
+        raise ValueError(f"unknown camera encoder {cfg['_name_']!r}")
+    if in_channels != 3:
+        raise ValueError(f"{cfg['_name_']!r} encodes RGB frames, not {in_channels}-channel ones")
+    return enc
 
 
 def robot_obs_width(dm_cfg: dict) -> int:
@@ -95,7 +125,6 @@ def build_perceptual_encoder(pe_cfg: dict, static_hw: int, gripper_hw: int,
                              depth_static_hw: int, depth_gripper_hw: int,
                              robot_obs_dim: Optional[int]) -> Tuple[ConcatEncoders, int]:
     """(``ConcatEncoders``, the embedding's width)."""
-    _require(pe_cfg.get("tactile") is None, "the tactile encoder")
     static = build_static_encoder(pe_cfg["rgb_static"], static_hw)
     width = pe_cfg["rgb_static"]["visual_features"]
     kw = {}
@@ -109,6 +138,12 @@ def build_perceptual_encoder(pe_cfg: dict, static_hw: int, gripper_hw: int,
             kw["depth_gripper"] = build_gripper_encoder(pe_cfg["depth_gripper"],
                                                         depth_gripper_hw, 1)
             width += pe_cfg["depth_gripper"]["visual_features"]
+    if pe_cfg.get("tactile") is not None:
+        tcfg = pe_cfg["tactile"]
+        if tcfg["_name_"] != "tactile_encoder":
+            raise ValueError(f"unknown tactile encoder {tcfg['_name_']!r}")
+        kw["tactile"] = build_pretrained_encoder(tcfg, None)
+        width += tcfg["visual_features"]
     proprio = pe_cfg.get("proprio")
     if proprio:
         n = int(proprio["n_state_obs"])

@@ -11,20 +11,23 @@ class ConcatEncoders(nn.Module):
     """Per-camera encoders over (B, S, H, W, C) windows (depth maps (B, S, H,
     W) as one channel), each flattened to one batch of frames, concatenated
     in JAX's fixed order rgb_static ++ depth_static ++ rgb_gripper ++
-    depth_gripper ++ proprio (``perceptual.py:46-57``): the gripper camera
-    is optional, its depth encoder is used only with it, and the proprio
+    depth_gripper ++ tactile ++ proprio (``perceptual.py:43-57``): the
+    gripper camera is optional, its depth encoder is used only with it, the
+    tactile encoder reads ``rgb_obs["rgb_tactile"]``, and the proprio
     part is the identity slice ``robot_obs[..., :proprio_dim]`` of the
     processed robot_obs (narrower when robot_obs is). The encoders' names
     are the reference's state_dict names."""
 
     def __init__(self, rgb_static: nn.Module, rgb_gripper: Optional[nn.Module] = None,
                  depth_static: Optional[nn.Module] = None,
-                 depth_gripper: Optional[nn.Module] = None, proprio_dim: int = 0):
+                 depth_gripper: Optional[nn.Module] = None, tactile: Optional[nn.Module] = None,
+                 proprio_dim: int = 0):
         super().__init__()
         self.rgb_static_encoder = rgb_static
         self.depth_static_encoder = depth_static
         self.rgb_gripper_encoder = rgb_gripper
         self.depth_gripper_encoder = depth_gripper if rgb_gripper is not None else None
+        self.tactile_encoder = tactile
         self.proprio_dim = proprio_dim
 
     @staticmethod
@@ -45,7 +48,8 @@ class ConcatEncoders(nn.Module):
         parts = [(self.rgb_static_encoder, rgb_obs, "rgb_static"),
                  (self.depth_static_encoder, depth_obs, "depth_static"),
                  (self.rgb_gripper_encoder, rgb_obs, "rgb_gripper"),
-                 (self.depth_gripper_encoder, depth_obs, "depth_gripper")]
+                 (self.depth_gripper_encoder, depth_obs, "depth_gripper"),
+                 (self.tactile_encoder, rgb_obs, "rgb_tactile")]
         feats = [self._encode(enc, obs[key], deterministic, generator)
                  for enc, obs, key in parts if enc is not None]
         if self.proprio_dim > 0:

@@ -92,7 +92,8 @@ class SyntheticRun:
             lang_dim=None if isinstance(self.model.lang_net, ClipTextTransformer)
             else model_cfg["language_goal"]["in_features"],
             depth_keys=dm_cfg["observation_space"]["depth_obs"],
-            scene_obs="scene_obs" in dm_cfg["observation_space"]["state_obs"])
+            scene_obs="scene_obs" in dm_cfg["observation_space"]["state_obs"],
+            tactile="rgb_tactile" in dm_cfg["observation_space"]["rgb_obs"])
         self.generator = torch.Generator(device=device).manual_seed(seed + 1)
         self.kl_beta = cfg["loss"]["kl_beta"]
 

@@ -16,10 +16,21 @@ are the reference's (``perceptual_encoder.rgb_static_encoder.conv_model.0``,
   the same order (r, z, n and i, f, g, o are torch's);
 - CLIP's separate q/k/v kernels -> one packed ``in_proj_weight`` (3C, C).
 
+The pretrained encoders (R3M, CLIP RN50/ViT, tactile, ``vision_resnet``,
+``vision_resnet_aff``) carry their BatchNorm statistics in the variables'
+``batch_stats`` collection: ``TorchBatchNorm`` and flax ``nn.BatchNorm``
+scale/bias/mean/var -> weight/bias/running_mean/running_var.
 ``detector_flax_to_torch(variables, aff_cfg)`` does the same for the JAX
-``AffordanceDetector``'s {"params", "batch_stats"}: ``TorchBatchNorm`` and
-flax ``nn.BatchNorm`` scale/bias/mean/var -> weight/bias/running_mean/
-running_var, the tower through the CLIP mapping.
+``AffordanceDetector``'s {"params", "batch_stats"}, the tower through the
+CLIP mapping.
+
+The upstream checkpoints' loaders (counterparts of the JAX converters) take
+a torch state_dict under its upstream names into the port's modules:
+``convert_torchvision_resnet`` (torchvision's ``layer1.0.downsample.0``
+-> ``layer1_0.ds_conv``), ``convert_r3m_checkpoint`` (R3M's ``convnet.*``),
+``convert_clip_visual`` (OpenAI CLIP's ModifiedResNet under ``visual.``)
+and ``convert_clip_vit`` (its ViT, whose names the port keeps).
+``load_lightning_checkpoint`` reads a reference trainer's ``.ckpt``.
 """
 from __future__ import annotations
 
@@ -33,6 +44,11 @@ SD = Dict[str, np.ndarray]
 
 def _f32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
+
+
+def _tensors(sd: SD) -> Dict[str, torch.Tensor]:
+    """Writable, contiguous copies (jax arrays come as read-only numpy)."""
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
 
 
 def _prefixed(prefix: str, sd: SD) -> SD:
@@ -206,13 +222,9 @@ def proj_vis_lang(p: Mapping) -> SD:
     }
 
 
-def clip_text(p: Mapping, layers: int) -> SD:
-    out = {
-        "token_embedding.weight": _f32(p["token_embedding"]["embedding"]),
-        "positional_embedding": _f32(p["positional_embedding"]),
-        **_prefixed("ln_final", layer_norm(p["ln_final"])),
-        "text_projection": _f32(p["text_projection"]),
-    }
+def clip_resblocks(p: Mapping, layers: int) -> SD:
+    """The JAX towers' ``resblock_{i}`` -> ``transformer.resblocks.{i}``."""
+    out: SD = {}
     for i in range(layers):
         blk, attn = p[f"resblock_{i}"], p[f"resblock_{i}"]["attn"]
         pre = f"transformer.resblocks.{i}"
@@ -228,32 +240,82 @@ def clip_text(p: Mapping, layers: int) -> SD:
     return out
 
 
-def perceptual_encoder(pe: Mapping) -> SD:
+def clip_text(p: Mapping, layers: int) -> SD:
+    return {
+        "token_embedding.weight": _f32(p["token_embedding"]["embedding"]),
+        "positional_embedding": _f32(p["positional_embedding"]),
+        **_prefixed("ln_final", layer_norm(p["ln_final"])),
+        "text_projection": _f32(p["text_projection"]),
+        **clip_resblocks(p, layers),
+    }
+
+
+def clip_vit(p: Mapping) -> SD:
+    """The JAX ``ClipVisionTransformer`` -> the port's (OpenAI's visual names)."""
+    layers = sum(1 for k in p if k.startswith("resblock_"))
+    return {
+        "conv1.weight": conv_kernel(p["conv1"]),
+        "class_embedding": _f32(p["class_embedding"]),
+        "positional_embedding": _f32(p["positional_embedding"]),
+        **_prefixed("ln_pre", layer_norm(p["ln_pre"])),
+        **_prefixed("ln_post", layer_norm(p["ln_post"])),
+        "proj": _f32(p["proj"]),
+        **clip_resblocks(p, layers),
+    }
+
+
+def pretrained_encoder(name: str, p: Mapping, stats: Mapping) -> SD:
+    """A ``models/pretrained_vision`` encoder's params and BatchNorm
+    statistics -> its state_dict."""
+    heads = {"vision_resnet_aff": ("fc1", "fc2", "fc3")}.get(name, ("fc1", "fc2"))
+    out: SD = {}
+    for h in heads:
+        out.update(_prefixed(h, linear(p[h])))
+    if name == "vision_clip":
+        tower = p["clip"]
+        out.update(_prefixed("clip", clip_resnet(tower, stats["clip"]) if "attnpool" in tower
+                             else clip_vit(tower)))
+    else:
+        trunk = {"vision_r3m": "r3m", "tactile_encoder": "trunk"}.get(name, "resnet")
+        out.update(_prefixed(trunk, resnet(p[trunk], stats[trunk])))
+    return out
+
+
+CONV_ENCODERS = ("vision_network", "vision_conv", "vision_network_gripper")
+
+
+def perceptual_encoder(pe: Mapping, stats: Mapping, pe_cfg: dict) -> SD:
     """The encoders of the cameras the flax ``ConcatEncoders`` has params
-    for (a camera it does not encode has none): the static and depth_static
-    ones a ``VisionNetwork`` or, with a ``trunk``, a ``VisionConv``; the
-    gripper and depth_gripper ones a ``VisionNetworkGripper``. The proprio
-    slice has no parameters."""
+    for (a camera it does not encode has none), by their config's name: a
+    ``VisionNetwork``, ``VisionConv`` (with a ``trunk``) or
+    ``VisionNetworkGripper``, or a pretrained architecture with its
+    ``batch_stats``. The proprio slice has no parameters."""
     sd: SD = {}
-    for cam in ("rgb_static", "depth_static", "rgb_gripper", "depth_gripper"):
-        if cam in pe:
-            enc = pe[cam]
-            sd.update(_prefixed(f"perceptual_encoder.{cam}_encoder",
-                                vision_network_gripper(enc) if "trunk" in enc
-                                else vision_network(enc)))
+    for cam in ("rgb_static", "depth_static", "rgb_gripper", "depth_gripper", "tactile"):
+        if cam not in pe:
+            continue
+        enc, name = pe[cam], pe_cfg[cam]["_name_"]
+        if name in CONV_ENCODERS:
+            enc_sd = vision_network_gripper(enc) if "trunk" in enc else vision_network(enc)
+        else:
+            enc_sd = pretrained_encoder(name, enc, stats.get(cam, {}))
+        sd.update(_prefixed(f"perceptual_encoder.{cam}_encoder", enc_sd))
     return sd
 
 
 def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch.Tensor]:
-    """The JAX ``Hulc2`` flax variables ({"params": ...}) -> the port's
-    ``state_dict``, for every model ``models/build.py`` builds: the camera
-    encoders present (depth ones and no gripper one included) and trunks, the transformer, BiLSTM or BiRNN posterior, the decoder and
-    its rnn, and whichever of the language network (CLIP text tower or
-    ``lang_mlp``), the CLIP loss's projections and temperature, and the
-    state, BC-Z, MIA and task heads the model has."""
+    """The JAX ``Hulc2`` flax variables ({"params": ...}, and "batch_stats"
+    when a pretrained encoder has BatchNorms) -> the port's ``state_dict``,
+    for every model ``models/build.py`` builds: the camera and tactile
+    encoders present (depth ones and no gripper one included) and trunks,
+    the transformer, BiLSTM or BiRNN posterior, the decoder and its rnn, and
+    whichever of the language network (CLIP text tower or ``lang_mlp``), the
+    CLIP loss's projections and temperature, and the state, BC-Z, MIA and
+    task heads the model has."""
     p = params["params"]
+    stats = params.get("batch_stats", {}).get("perceptual_encoder", {})
     sd: SD = {
-        **perceptual_encoder(p["perceptual_encoder"]),
+        **perceptual_encoder(p["perceptual_encoder"], stats, model_cfg["perceptual_encoder"]),
         **_prefixed("plan_proposal", plan_proposal(p["plan_proposal"])),
         **_prefixed("plan_recognition", plan_recognition(p["plan_recognition"],
                                                          model_cfg["plan_recognition"])),
@@ -274,7 +336,7 @@ def flax_to_torch(params: Mapping[str, Any], model_cfg: dict) -> Dict[str, torch
     for head in ("lang_task_head", "state_decoder", "bcz_lang_decoder", "mia_discriminator"):
         if head in p:
             sd.update(_prefixed(head, two_layer(p[head])))
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return _tensors(sd)
 
 
 def conv_kernel(p: Mapping) -> np.ndarray:
@@ -287,17 +349,37 @@ def batch_norm(p: Mapping, stats: Mapping) -> SD:
             "running_mean": _f32(stats["mean"]), "running_var": _f32(stats["var"])}
 
 
-def resnet18(p: Mapping, stats: Mapping) -> SD:
-    out = {"conv1.weight": conv_kernel(p["conv1"]), **_prefixed("bn1", batch_norm(p["bn1"], stats["bn1"]))}
-    for stage in range(1, 5):
-        for b in range(2):
-            name = f"layer{stage}_{b}"
-            blk, blk_stats = p[name], stats[name]
-            for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("ds_conv", "ds_bn")):
-                if conv in blk:
-                    out[f"{name}.{conv}.weight"] = conv_kernel(blk[conv])
-                    out.update(_prefixed(f"{name}.{bn}", batch_norm(blk[bn], blk_stats[bn])))
+def resnet_blocks(p: Mapping, stats: Mapping) -> SD:
+    """Every ``layer{s}_{b}`` block of a ResNet or CLIP ModifiedResNet:
+    its ``conv{i}``/``bn{i}`` and ``ds_conv``/``ds_bn``."""
+    out: SD = {}
+    for name in (k for k in p if k.startswith("layer")):
+        blk, blk_stats = p[name], stats[name]
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"),
+                         ("ds_conv", "ds_bn")):
+            if conv in blk:
+                out[f"{name}.{conv}.weight"] = conv_kernel(blk[conv])
+                out.update(_prefixed(f"{name}.{bn}", batch_norm(blk[bn], blk_stats[bn])))
     return out
+
+
+def resnet(p: Mapping, stats: Mapping) -> SD:
+    """``models/resnet.ResNet`` of any arch."""
+    return {"conv1.weight": conv_kernel(p["conv1"]),
+            **_prefixed("bn1", batch_norm(p["bn1"], stats["bn1"])), **resnet_blocks(p, stats)}
+
+
+def clip_resnet(p: Mapping, stats: Mapping) -> SD:
+    """``ClipModifiedResNet``: the three-conv stem, the blocks, the attention pool."""
+    out: SD = {}
+    for i in (1, 2, 3):
+        out[f"conv{i}.weight"] = conv_kernel(p[f"conv{i}"])
+        out.update(_prefixed(f"bn{i}", batch_norm(p[f"bn{i}"], stats[f"bn{i}"])))
+    pool = p["attnpool"]
+    out["attnpool.positional_embedding"] = _f32(pool["positional_embedding"])
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        out.update(_prefixed(f"attnpool.{proj}", dense(pool[proj])))
+    return {**out, **resnet_blocks(p, stats)}
 
 
 def lang_fusion_decoder(p: Mapping, stats: Mapping, n_blocks: int) -> SD:
@@ -319,7 +401,7 @@ def detector_flax_to_torch(variables: Mapping[str, Any], aff_cfg: dict) -> Dict[
     stream, stream_stats = p["aff_stream"], stats["aff_stream"]
     sd: SD = {
         **_prefixed("lang_tower", clip_text(p["lang_tower"], aff_cfg["tower_layers"])),
-        **_prefixed("aff_stream.encoder", resnet18(stream["encoder"], stream_stats["encoder"])),
+        **_prefixed("aff_stream.encoder", resnet(stream["encoder"], stream_stats["encoder"])),
         **_prefixed("aff_stream.decoder", lang_fusion_decoder(
             stream["decoder"], stream_stats["decoder"], len(aff_cfg["decoder_channels"]))),
         "aff_stream.seg_head.weight": conv_kernel(stream["seg_head"]),
@@ -327,4 +409,91 @@ def detector_flax_to_torch(variables: Mapping[str, Any], aff_cfg: dict) -> Dict[
     }
     for head in ("fc1", "fc2", "fc3", "depth_mu", "depth_sigma"):
         sd.update(_prefixed(f"depth_stream.{head}", linear(p["depth_stream"][head])))
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return _tensors(sd)
+
+
+# ---- upstream checkpoints -> the port's modules ---------------------------- #
+def _upstream(sd: Mapping, prefix: str) -> SD:
+    """The entries under ``prefix``, prefix stripped, as fp32 numpy arrays."""
+    return {k[len(prefix):]: _f32(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
+            for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _bn_upstream(sd: SD, src: str, dst: str) -> SD:
+    return {f"{dst}.{n}": sd[f"{src}.{n}"] for n in ("weight", "bias", "running_mean", "running_var")}
+
+
+def _blocks_upstream(sd: SD, layers, n_convs: int) -> SD:
+    """torchvision/CLIP ``layer{s}.{b}.conv{i}``/``bn{i}`` and
+    ``downsample.0``/``.1`` -> ``layer{s}_{b}.conv{i}``/``bn{i}``/``ds_conv``/``ds_bn``."""
+    out: SD = {}
+    for stage, n_blocks in enumerate(layers):
+        for b in range(n_blocks):
+            src, dst = f"layer{stage + 1}.{b}", f"layer{stage + 1}_{b}"
+            for i in range(1, n_convs + 1):
+                out[f"{dst}.conv{i}.weight"] = sd[f"{src}.conv{i}.weight"]
+                out.update(_bn_upstream(sd, f"{src}.bn{i}", f"{dst}.bn{i}"))
+            if f"{src}.downsample.0.weight" in sd:
+                out[f"{dst}.ds_conv.weight"] = sd[f"{src}.downsample.0.weight"]
+                out.update(_bn_upstream(sd, f"{src}.downsample.1", f"{dst}.ds_bn"))
+    return out
+
+
+def convert_torchvision_resnet(sd: Mapping, arch: str = "resnet18",
+                               prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet state_dict (under ``prefix``) -> ``models/resnet.ResNet(arch)``'s
+    (``hulc2_tpu/models/resnet.py:145``); ``fc`` and ``num_batches_tracked`` are dropped."""
+    from hulc2_torch.models.resnet import ARCHS
+
+    block, layers = ARCHS[arch]
+    up = _upstream(sd, prefix)
+    out = {"conv1.weight": up["conv1.weight"], **_bn_upstream(up, "bn1", "bn1")}
+    out.update(_blocks_upstream(up, layers, 3 if block.expansion == 4 else 2))
+    return _tensors(out)
+
+
+def convert_r3m_checkpoint(state_dict: Mapping, arch: str = "resnet18") -> Dict[str, torch.Tensor]:
+    """An R3M checkpoint (``module.convnet.*``, ``convnet.*`` or
+    ``r3m.convnet.*``) -> the trunk of ``VisionR3M`` (its ``r3m`` module;
+    ``pretrained_vision.py:149``)."""
+    for prefix in ("module.convnet.", "convnet.", "r3m.convnet."):
+        if any(k.startswith(prefix) for k in state_dict):
+            return convert_torchvision_resnet(state_dict, arch, prefix)
+    raise KeyError("no convnet.* keys found in R3M checkpoint")
+
+
+def convert_clip_visual(sd: Mapping, layers=(3, 4, 6, 3),
+                        prefix: str = "visual.") -> Dict[str, torch.Tensor]:
+    """OpenAI CLIP's ModifiedResNet (``visual.*``) -> ``ClipModifiedResNet``'s
+    state_dict (``clip_resnet.py:126``); the attention pool keeps its names."""
+    up = _upstream(sd, prefix)
+    out: SD = {}
+    for i in (1, 2, 3):
+        out[f"conv{i}.weight"] = up[f"conv{i}.weight"]
+        out.update(_bn_upstream(up, f"bn{i}", f"bn{i}"))
+    out.update(_blocks_upstream(up, layers, 3))
+    out.update({k: v for k, v in up.items() if k.startswith("attnpool.")})
+    return _tensors(out)
+
+
+def convert_clip_vit(sd: Mapping, prefix: str = "visual."):
+    """OpenAI CLIP's ViT (``visual.*``) -> (``ClipVisionTransformer``'s
+    state_dict, its constructor kwargs) (``clip_vit.py:70``): the names are
+    kept, the sizes read off the weights."""
+    up = _upstream(sd, prefix)
+    width = up["ln_pre.weight"].shape[0]
+    layers = 1 + max(int(k.split(".")[2]) for k in up if k.startswith("transformer.resblocks."))
+    patch = up["conv1.weight"].shape[-1]
+    n_pos = up["positional_embedding"].shape[0]
+    kwargs = dict(patch_size=patch, width=width, layers=layers, heads=max(1, width // 64),
+                  output_dim=up["proj"].shape[1],
+                  input_resolution=patch * int(round((n_pos - 1) ** 0.5)))
+    return _tensors(up), kwargs
+
+
+def load_lightning_checkpoint(path):
+    """(state_dict, hyper_parameters) of a ``.ckpt`` written by the reference
+    trainer (``torch.save`` of {"state_dict": ..., "hyper_parameters": ...})
+    (``hulc2_tpu/utils/convert.py:316``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return ckpt.get("state_dict", ckpt), ckpt.get("hyper_parameters", {})

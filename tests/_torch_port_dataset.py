@@ -24,7 +24,13 @@ SPLITS = {
 }
 
 
-def write_calvin_dir(root: Path, static_hw: int = 16, gripper_hw: int = 16, seed: int = 3) -> Path:
+def write_calvin_dir(root: Path, static_hw: int = 16, gripper_hw: int = 16, seed: int = 3,
+                     action_key: str = "rel_actions", tactile_hw=None,
+                     lang_folder: str = "lang_annotations") -> Path:
+    """With ``tactile_hw`` each frame also holds TACO's tactile entries, a
+    6-channel uint8 ``rgb_tactile`` and a 2-channel float32 ``depth_tactile``;
+    ``action_key`` names the relative actions (``rel_actions_gripper`` in
+    the real-robot layout) and ``lang_folder`` the annotations' folder."""
     rng = np.random.default_rng(seed)
     for split, spec in SPLITS.items():
         d = Path(root) / split
@@ -34,20 +40,24 @@ def write_calvin_dir(root: Path, static_hw: int = 16, gripper_hw: int = 16, seed
             for i in range(start, end + 1):
                 act = np.clip(rng.standard_normal(7) * 0.5, -1, 1).astype(np.float32)
                 act[-1] = 1.0 if rng.random() > 0.5 else -1.0
-                np.savez(
-                    d / f"episode_{i:07d}.npz",
+                frame = dict(
                     rgb_static=rng.integers(0, 256, (static_hw, static_hw, 3), np.uint8),
                     rgb_gripper=rng.integers(0, 256, (gripper_hw, gripper_hw, 3), np.uint8),
                     robot_obs=(rng.standard_normal(15) * 0.3).astype(np.float32),
-                    rel_actions=act,
                 )
+                frame[action_key] = act
+                if tactile_hw:
+                    frame["rgb_tactile"] = rng.integers(0, 256, (tactile_hw, tactile_hw, 6), np.uint8)
+                    frame["depth_tactile"] = rng.uniform(0, 1, (tactile_hw, tactile_hw, 2)).astype(
+                        np.float32)
+                np.savez(d / f"episode_{i:07d}.npz", **frame)
         ann = {
             "language": {"ann": [a[2] for a in spec["ann"]], "task": [a[1] for a in spec["ann"]],
                          "emb": rng.standard_normal((len(spec["ann"]), 1, 32)).astype(np.float32)},
             "info": {"episodes": [], "indx": [a[0] for a in spec["ann"]]},
         }
-        (d / "lang_annotations").mkdir()
-        np.save(d / "lang_annotations" / "auto_lang_ann.npy", ann, allow_pickle=True)
+        (d / lang_folder).mkdir()
+        np.save(d / lang_folder / "auto_lang_ann.npy", ann, allow_pickle=True)
         (d / "statistics.yaml").write_text(STATS_YAML)
     return Path(root)
 

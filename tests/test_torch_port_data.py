@@ -301,11 +301,17 @@ def test_tiled_store_gives_the_same_batches(calvin_dir):
 
 
 def test_datamodule_refuses_unported_paths(calvin_dir):
-    for key, value in (("frame_skip", {"strategy": "random"}), ("loader_isolation", "process"),
-                       ("datasets", {"vis": True, "lang": False})):
+    """The device store refuses frame skipping and one modality, and so does
+    the process loader (ported since) one modality, as JAX's; an unknown
+    ``loader_isolation`` raises."""
+    for changes, err in (({"frame_skip": {"strategy": "random"}}, NotImplementedError),
+                         ({"datasets": {"vis": True, "lang": False}}, NotImplementedError),
+                         ({"loader_isolation": "process", "device_store": False,
+                           "datasets": {"vis": True, "lang": False}}, NotImplementedError),
+                         ({"loader_isolation": "thread"}, ValueError)):
         cfg = dm_cfg(calvin_dir)
-        cfg[key] = value
-        with pytest.raises(NotImplementedError):
+        cfg.update(changes)
+        with pytest.raises(err):
             Hulc2DataModule(cfg, device="cpu")
 
 

@@ -230,9 +230,11 @@ def test_low_level_forward_matches_jax(monkeypatch):
     # lang_mlp, once refused here, builds its trainable MLP over the 384-d embeddings
     mlp = build_policy(cfg_lib.compose("cfg_low_level", ["model/language_encoder=mlp"])["model"])
     assert mlp.lang_net.mlp[1].in_features == EMB_DIM
-    with pytest.raises(NotImplementedError, match="r3m"):
-        build_policy(cfg_lib.compose("cfg_low_level",
-                                     ["model/perceptual_encoder/rgb_static=r3m"])["model"])
+    # the pretrained encoders, once refused here, build (held to JAX in
+    # test_torch_port_pretrained*.py)
+    r3m = build_policy(cfg_lib.compose("cfg_low_level",
+                                       ["model/perceptual_encoder/rgb_static=r3m"])["model"])
+    assert type(r3m.perceptual_encoder.rgb_static_encoder).__name__ == "VisionR3M"
 
 
 def test_three_low_level_train_steps_track_jax(monkeypatch, low_dir):

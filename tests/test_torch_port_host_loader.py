@@ -38,18 +38,19 @@ LOW_TINY = [
 ]
 
 
-def write_low_level_dir(root: Path, static_hw: int = 200, gripper_hw: int = 84) -> Path:
+def write_low_level_dir(root: Path, static_hw: int = 200, gripper_hw: int = 84, **kw) -> Path:
     """``write_calvin_dir``'s dataset (at the ``rand_shift`` preset's sizes by
-    default) with 384-d hash embeddings of its sentences and each split's
-    ``embeddings.npy`` table of the canonical validation sentences: the
-    layout ``make_expert_dataset`` writes without ``--lang-tokens``."""
+    default; ``kw`` for its other options) with 384-d hash embeddings of its
+    sentences and each split's ``embeddings.npy`` table of the canonical
+    validation sentences: the layout ``make_expert_dataset`` writes without
+    ``--lang-tokens``."""
     from hulc2_torch.evaluation.tasks import TASK_NAMES
     from hulc2_torch.tools.annotations import VALIDATION_BANK
     from hulc2_torch.tools.auto_lang_annotator import hash_embed
 
-    write_calvin_dir(root, static_hw=static_hw, gripper_hw=gripper_hw)
+    write_calvin_dir(root, static_hw=static_hw, gripper_hw=gripper_hw, **kw)
     for split in ("training", "validation"):
-        d = Path(root) / split / "lang_annotations"
+        d = Path(root) / split / kw.get("lang_folder", "lang_annotations")
         ann = np.load(d / "auto_lang_ann.npy", allow_pickle=True).item()
         ann["language"]["emb"] = hash_embed(ann["language"]["ann"], EMB_DIM)[:, None]
         np.save(d / "auto_lang_ann.npy", ann, allow_pickle=True)

@@ -200,8 +200,14 @@ def test_small_overrides_apply():
 
 
 def test_build_policy_refuses_unported_options():
+    """The tactile encoder, once refused here, builds and widens the
+    embedding; an encoder neither package knows is refused by name."""
     cfg = flagship_config()
     cfg["model"]["perceptual_encoder"]["tactile"] = {"_name_": "tactile_encoder",
                                                      "visual_features": 64}
-    with pytest.raises(NotImplementedError, match="tactile"):
+    model = build_policy(cfg["model"])
+    assert model.perceptual_encoder.tactile_encoder is not None
+    assert model.visual_goal.mlp[0].in_features == 64 * 3
+    cfg["model"]["perceptual_encoder"]["tactile"] = {"_name_": "tactile_vit", "visual_features": 8}
+    with pytest.raises(ValueError, match="tactile_vit"):
         build_policy(cfg["model"])

@@ -758,8 +758,9 @@ def test_model_widths_follow_the_real_inputs():
     assert pe.depth_static_encoder.conv_model[0].in_channels == 1
     assert pe.rgb_gripper_encoder is not None and pe.depth_gripper_encoder is None
     assert depth.visual_goal.mlp[0].in_features == 192
-    with pytest.raises(NotImplementedError, match="tactile"):
-        build_policy_for(_compose(["model/perceptual_encoder=static_rgb_tactile"]))
+    # tactile (ported since): its 64 features before the proprio slice
+    tactile = build_policy_for(_compose(["model/perceptual_encoder=static_rgb_tactile"]))
+    assert tactile.visual_goal.mlp[0].in_features == 64 + 64 + 8
 
 
 # ---- rollouts ------------------------------------------------------------- #
@@ -1120,8 +1121,49 @@ def test_every_proprioception_preset_trains(obs_dir, dims):
 
 
 def test_unported_observation_spaces_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="tactile"):
-        tdt.make_batch_transform({**OBS_SPACE, "rgb_obs": ["rgb_static", "rgb_tactile"]},
-                                 ROBOT_SCENE_DIMS, "rand_shift")
+    # tactile cameras, once refused here, are ported: 6-channel frames through
+    # the preset's tactile pipeline (held to JAX in test_torch_port_pretrained_rw.py)
+    tf = tdt.make_batch_transform({**OBS_SPACE, "rgb_obs": ["rgb_static", "rgb_tactile"],
+                                   "depth_obs": []}, ROBOT_SCENE_DIMS, "rand_shift", train=False)
+    rng = np.random.default_rng(0)
+    raw = {"rgb_static": torch.from_numpy(rng.integers(0, 256, (1, 2, 200, 200, 3), dtype=np.uint8)),
+           "rgb_tactile": torch.from_numpy(rng.integers(0, 256, (1, 2, 80, 72, 6), dtype=np.uint8)),
+           "robot_obs_raw": torch.zeros(1, 2, 15), "scene_obs": torch.zeros(1, 2, 24),
+           "actions": torch.zeros(1, 2, 7)}
+    out = tf(raw, torch.Generator().manual_seed(0))
+    assert out["rgb_obs"]["rgb_tactile"].shape == (1, 2, 64, 64, 6)
     with pytest.raises(NotImplementedError, match="state_only"):
         tdt.make_batch_transform({**OBS_SPACE, "rgb_obs": []}, ROBOT_SCENE_DIMS, "rand_shift")
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+@pytest.mark.parametrize("strategy", ["random", "diff"])
+def test_frame_skip_windows_fit_the_posterior(package, strategy):
+    """Frame skipping pads windows to ``effective_max_ws``; the posterior's
+    positions end at ``max_position_embeddings`` (``${datamodule.max_window_size}``).
+    Both registries' presets keep the padded window within the table (16 of
+    32), and a window one frame longer than the table is refused by both
+    packages' posteriors at the first forward, never silently truncated."""
+    if package == "jax":
+        from hulc2_tpu.core import config as reg
+        from hulc2_tpu.models.distributions import PlanDistribution
+        from hulc2_tpu.models.plan_nets import PlanRecognitionTransformer as JPost
+    else:
+        from hulc2_torch.core import config as reg
+        from hulc2_torch.models.plan_nets import PlanRecognitionTransformer
+    cfg = reg.compose("cfg_low_level", [f"datamodule/frame_skip={strategy}"])
+    max_pos = cfg["model"]["plan_recognition"]["max_position_embeddings"]
+    assert cfg["datamodule"]["frame_skip"]["effective_max_ws"] <= max_pos == 32
+    x = np.zeros((1, 9, 16), np.float32)
+    if package == "jax":
+        post = JPost(PlanDistribution("discrete", 4, 5), num_heads=2, num_layers=1,
+                     encoder_hidden_size=16, fc_hidden_size=16, max_position_embeddings=8)
+        with pytest.raises((TypeError, ValueError)):
+            post.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    else:
+        post = PlanRecognitionTransformer(16, 40, num_heads=2, num_layers=1,
+                                          encoder_hidden_size=16, fc_hidden_size=16,
+                                          max_position_embeddings=8)
+        post(torch.from_numpy(x[:, :8]))
+        with pytest.raises(RuntimeError):
+            post(torch.from_numpy(x))
