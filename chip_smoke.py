@@ -175,7 +175,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    step; the step's wall time and device busy;
 38. (af) ``static_rgb_tactile`` the same way, with 6-channel tactile frames
    of 160x120 that the ``resize 70`` op resizes: 1 launch a step;
-39. the kernels line, the card line, and the final JSON line.
+39. (ag) the affordance package's options, from here on: for a small fp32
+   detector of each (the nine sentence-level fusers other than ``mult``,
+   ResNet50, CLIP RN50 and R3M encoders frozen and trainable, the logistic
+   head with metric bounds, no depth head, mask labels, ``rn18_pixel``'s
+   sentence embeddings), two train steps on the card and on the CPU, same
+   weights, batches and crop offsets, cuDNN deterministic: losses within
+   rel 1e-5; the bf16 decoder card against CPU within rel 1e-2 and against
+   the card's fp32 within 5%;
+40. (ah) labels mined from (r)'s dataset, then ``python -m
+   hulc2_torch.affordance.train_affordance aff_detection=rn18_pixel`` (the
+   JAX root's default: frozen ResNet18, ``mult``, Gaussian head, 1024-d hash
+   sentence embeddings under ``HULC2_ALLOW_STUB_EMBEDDINGS=1``) at batch 32
+   and 224 px for AFF_LOW_STEPS steps: losses and val metrics finite, the
+   encoder bit for bit as initialised, ``depth_norm`` in config.json, a
+   checkpoint; then ``evaluate_policy --train-dir`` (s)'s run
+   ``--dataset-path`` (r) ``--aff-train-dir`` that run, 8 chains on 8 envs in
+   2 cohorts: one prediction per subtask start, approaches, shift_normalize
+   launched exactly twice per dispatch, env-steps/s and ``aff_flush_s``;
+41. (ai) ``rn18_pixel`` in fp32 and with the bf16 decoder, ``rn50_pixel``,
+   ``r3m_pixel``, ``clip`` and ``rn18_clip_mask`` at full width on synthetic
+   frames, AFF_OPT_STEPS steps each: R3M's layer4 moved with its stem
+   through layer3 bit for bit, every other encoder bit for bit; the step's
+   wall time, device busy and the convolutions' share; then ``python -m
+   hulc2_torch.affordance.train_depth --synthetic`` for DEPTH_ONLY_STEPS
+   steps: total loss = depth loss, the encoder moved; then phase 5's bf16
+   gate on ``cfg_low_level_rw``, ``static_clip`` with RN50 and with
+   ViT-B/32, and ``static_rgb_tactile``;
+42. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -330,6 +357,54 @@ LOW_SMALL = [
     "datamodule.min_window_size=4", "datamodule.max_window_size=4",
 ]
 
+# the affordance package's options: (ag) small fp32 detectors of each new
+# option card against CPU; (ah) the JAX root's rn18_pixel detector over
+# 1024-d hash sentence embeddings, trained on labels mined from (r)'s dataset,
+# then the hierarchical eval of (s)'s cfg_low_level run with it; (ai) the
+# other encoders, the mask labels and the bf16 decoder at full width on
+# synthetic frames, AFF_OPT_STEPS steps each, then train_depth; and the
+# bf16-vs-fp32 gate of phase 5 on the pretrained trunks' presets
+AFF_SMALL = ["aff_detection.decoder_channels=[32,16,8,8,8]", "aff_detection.lang_embed_dim=16",
+             "aff_detection.dataset.img_resize.static=64", "batch_size=2"]
+AFF_OPTION_CASES = {
+    **{f"fusion {f}": ("rn18_pixel", [f"aff_detection.fusion_type={f}"])
+       for f in ("add", "max", "concat", "conv", "conv_lat", "film", "deep_conv", "cross_modal_2d",
+                 "sentence_attention")},
+    **{f"{g} {'frozen' if frozen else 'trainable'}":
+       (g, [f"aff_detection.freeze_encoder={str(frozen).lower()}"])
+       for g in ("rn50_pixel", "rn50_clip_pixel", "r3m_pixel") for frozen in (True, False)},
+    "logistic head, metric bounds": ("rn18_pixel", ["aff_detection.depth_dist=logistic",
+                                                    "aff_detection.normalize_depth=false"]),
+    "no depth head": ("rn18_pixel", ["aff_detection.depth_dist=null"]),
+    "mask labels": ("rn18_clip_mask", []),
+    "sentence embeddings": ("rn18_pixel", []),
+}
+AFF_BF16 = ["aff_detection.compute_dtype=bfloat16"]
+AFF_LOW_DATA = BUILD / "chip_smoke_aff_low_data"
+AFF_LOW_RUN = BUILD / "chip_smoke_aff_low"
+AFF_LOW_DIR = BUILD / "chip_smoke_aff_low_hier"
+AFF_LOW_STEPS = 12
+AFF_OPT_STEPS = 6
+AFF_PRESETS = {
+    "rn18_pixel": ["aff_detection=rn18_pixel"],
+    "rn18_pixel bf16": ["aff_detection=rn18_pixel", *AFF_BF16],
+    "rn50_pixel": ["aff_detection=rn50_pixel"],
+    "r3m_pixel": ["aff_detection=r3m_pixel"],
+    "clip": ["aff_detection=clip"],
+    "rn18_clip_mask": ["aff_detection=rn18_clip_mask"],
+}
+DEPTH_ONLY_RUN = BUILD / "chip_smoke_train_depth"
+DEPTH_ONLY_STEPS = 3
+BF16_PRESETS = {
+    "cfg_low_level_rw": ("cfg_low_level_rw", []),
+    "static_clip RN50": ("cfg_low_level", ["model/perceptual_encoder=static_clip",
+                                           "datamodule.transforms=clip"]),
+    "static_clip ViT-B/32": ("cfg_low_level", [
+        "model/perceptual_encoder=static_clip", "datamodule.transforms=clip",
+        'model.perceptual_encoder.rgb_static.model_name="ViT-B/32"']),
+    "static_rgb_tactile": ("cfg_low_level", TACTILE),
+}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -454,35 +529,31 @@ def phase_reference(dev: torch.device) -> None:
             fail(f"card and CPU train-step losses disagree: {losses}")
 
 
-def phase_bf16_vs_fp32(dev: torch.device) -> float:
-    """One forward of the full-width policy on one synthetic batch under bf16
-    autocast (bf16 kernel output) and in fp32 (fp32 kernel output), same
-    weights, offsets and Gumbel draws: the bf16 losses must stay within 5% of
-    the fp32 ones. Returns the largest relative gap."""
+def phase_bf16_vs_fp32(dev: torch.device, cfg: dict = None, tag: str = "flagship") -> float:
+    """One forward of the full-width policy (``cfg``, the flagship's by
+    default) on one synthetic batch under bf16 autocast (bf16 transform
+    output) and in fp32 (fp32 output), same weights, transform draws and
+    Gumbel draws: the bf16 losses must stay within 5% of the fp32 ones.
+    Returns the largest relative gap."""
+    from hulc2_torch import training
     from hulc2_torch.configs.flagship import flagship_config
-    from hulc2_torch.data.device_transforms import draw_offsets, make_batch_transform
-    from hulc2_torch.data.random_data import RandomWindowBatches
-    from hulc2_torch.models.build import build_policy
+    from hulc2_torch.data.device_transforms import LANG_KEYS, make_batch_transform
 
-    cfg = flagship_config()
-    dm, mc = cfg["datamodule"], cfg["model"]
-    model = build_policy(mc, seed=7).to(dev)
-    raw = RandomWindowBatches(dm["batch_size_vis"], dm["batch_size_lang"], dm["max_window_size"],
-                              seed=8, device=dev).next_batch()
-    n_vis = dm["batch_size_vis"]
-    fused = {k: torch.cat([raw["vis"][k], raw["lang"][k]]) for k in raw["vis"]}
-    n_frames = fused["actions"].shape[0] * fused["actions"].shape[1]
-    g = torch.Generator(device=dev).manual_seed(9)
-    offsets = {cam: draw_offsets(n_frames, pad, g, dev)
-               for cam, pad in (("rgb_static", 4), ("rgb_gripper", 3))}
+    cfg = cfg or flagship_config()
+    dm = cfg["datamodule"]
+    run = training.SyntheticRun(cfg, dev)
+    model, raw = run.model, run.next_batch()
+    n_vis = raw["vis"]["actions"].shape[0]
+    fused = {k: torch.cat([raw["vis"][k], raw["lang"][k]]) for k in raw["vis"] if k in raw["lang"]}
+    fused.update({k: raw["lang"][k] for k in LANG_KEYS if k in raw["lang"]})
     gumbel = model.dist.gumbel((fused["actions"].shape[0], model.dist.category_size,
-                                model.dist.class_size), g, dev)
+                                model.dist.class_size), torch.Generator(device=dev).manual_seed(9),
+                               dev)
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         tf = make_batch_transform(dm["observation_space"], dm["proprioception_dims"],
                                   dm["transforms"], dtype=dtype)
-        batch = tf(fused, None, {k: {1: v} for k, v in offsets.items()})  # the shift is op 1
-        batch.update({k: raw["lang"][k] for k in ("lang", "use_for_aux_lang_loss", "lang_task_id")})
+        batch = tf(fused, torch.Generator(device=dev).manual_seed(10), None)
         with torch.no_grad(), torch.autocast(device_type=dev.type, dtype=torch.bfloat16,
                                              enabled=dtype == torch.bfloat16):
             out[dtype] = model(batch, cfg["loss"]["kl_beta"], n_vis, deterministic=True,
@@ -493,10 +564,11 @@ def phase_bf16_vs_fp32(dev: torch.device) -> float:
             continue
         a, b = ref.item(), out[torch.bfloat16][k].item()
         gap = abs(a - b) / max(abs(a), 1e-3)
-        print(f"[bf16] {k}: fp32 {a:.5f} bf16 {b:.5f} rel gap {gap:.2e}", flush=True)
+        print(f"[bf16] {tag} {k}: fp32 {a:.5f} bf16 {b:.5f} rel gap {gap:.2e}", flush=True)
         if not math.isfinite(b) or gap > 0.05:
-            fail(f"bf16 forward drifts from fp32 on {k}: {a} vs {b}")
+            fail(f"{tag}: bf16 forward drifts from fp32 on {k}: {a} vs {b}")
         worst = max(worst, gap)
+    del run, model, raw, fused, out
     return worst
 
 
@@ -969,35 +1041,38 @@ def phase_mining() -> dict:
     return labels
 
 
-def phase_aff_train(dev: torch.device, card: str, labels: dict):
-    """(k) The detector trained on the mined labels at batch 32; returns the
+def phase_aff_train(dev: torch.device, card: str, labels: dict, tag: str = "aff_train",
+                    run_dir: Path = AFF_RUN, data_dir: Path = AFF_DATA,
+                    group: str = "rn18_tokens_pixel", steps: int = AFF_STEPS):
+    """(k) The detector trained on the mined labels at batch 32 ((ah): the
+    ``group`` on ``data_dir``'s labels for ``steps`` steps); returns the
     trained model."""
     from hulc2_torch.affordance import train_affordance
     from hulc2_torch.configs.affordance import affordance_config
 
-    cfg = affordance_config()
+    cfg = affordance_config([f"aff_detection={group}"])
     per_epoch = labels["training"] // cfg["batch_size"]
     if per_epoch < 1:
         fail(f"{labels['training']} training labels make no batch of {cfg['batch_size']}")
-    epochs = -(-AFF_STEPS // per_epoch)
-    shutil.rmtree(AFF_RUN, ignore_errors=True)
-    result = train_affordance.main(["--run-dir", str(AFF_RUN), "--device", "cuda", "--max-epochs",
-                                    str(epochs), "--max-steps", str(AFF_STEPS),
-                                    "aff_detection=rn18_tokens_pixel",
-                                    f"aff_detection.dataset.data_dir={AFF_DATA}"])
+    epochs = -(-steps // per_epoch)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    result = train_affordance.main(["--run-dir", str(run_dir), "--device", "cuda", "--max-epochs",
+                                    str(epochs), "--max-steps", str(steps),
+                                    f"aff_detection={group}",
+                                    f"aff_detection.dataset.data_dir={data_dir}"])
     torch.cuda.synchronize(dev)
-    if result.step != AFF_STEPS or len(result.history) != AFF_STEPS or len(result.val_history) != epochs:
-        fail(f"{result.step} steps, {len(result.history)} train and {len(result.val_history)} val "
-             f"lines, expected {AFF_STEPS} steps and {epochs} validations")
+    if result.step != steps or len(result.history) != steps or len(result.val_history) != epochs:
+        fail(f"{group}: {result.step} steps, {len(result.history)} train and "
+             f"{len(result.val_history)} val lines, expected {steps} steps and {epochs} validations")
     bad = sorted({k for line in result.history + result.val_history for k, v in line.items()
                   if not math.isfinite(v)})
     if bad or "val/px_dist_err" not in result.val_history[-1]:
         fail(f"non-finite or missing metrics: {bad}")
-    run_cfg = json.loads((AFF_RUN / "config.json").read_text())
+    run_cfg = json.loads((run_dir / "config.json").read_text())
     if set(run_cfg.get("depth_norm", {})) != {"mean", "std"}:
-        fail("config.json holds no depth_norm")
-    if not (AFF_RUN / "saved_models" / f"{AFF_STEPS}.pt").is_file():
-        fail("no checkpoint of the last step")
+        fail(f"{group}: config.json holds no depth_norm")
+    if not (run_dir / "saved_models" / f"{steps}.pt").is_file():
+        fail(f"{group}: no checkpoint of the last step")
     fresh = train_affordance.build_detector(cfg["aff_detection"], cfg["seed"]).state_dict()
     trained = {k: v.cpu() for k, v in result.model.state_dict().items()}
     encoder = [k for k in fresh if k.startswith("aff_stream.encoder.")]
@@ -1005,53 +1080,59 @@ def phase_aff_train(dev: torch.device, card: str, labels: dict):
         fail("the frozen encoder's parameters or statistics changed")
     trainable = [n for n, p in result.model.named_parameters() if p.requires_grad]
     moved = [n for n in trainable if not torch.equal(fresh[n], trained[n])]
-    if len(moved) < 0.9 * len(trainable) or not any(n.startswith("lang_tower.") for n in moved) \
-            or not any(n.startswith("aff_stream.decoder.") for n in moved):
-        fail(f"only {len(moved)} of {len(trainable)} trainable tensors moved")
+    tower = result.model.text_tower
+    if len(moved) < 0.9 * len(trainable) or not any(n.startswith("aff_stream.decoder.") for n in moved) \
+            or tower != any(n.startswith("lang_tower.") for n in moved):
+        fail(f"{group}: only {len(moved)} of {len(trainable)} trainable tensors moved")
     steady = [line["step_ms"] for line in result.history[WARM_STEPS:]]
     val = result.val_history[-1]
-    print(f"[aff_train] {AFF_STEPS} steps at batch {cfg['batch_size']} over {epochs} epochs of "
+    print(f"[{tag}] {group}: {steps} steps at batch {cfg['batch_size']} over {epochs} epochs of "
           f"{per_epoch}: losses " + ", ".join(f"{line['total_loss']:.4f}" for line in result.history),
           flush=True)
-    print(f"[aff_train] val: " + ", ".join(f"{k[4:]} {v:.4f}" for k, v in val.items()
-                                           if k.startswith("val/")), flush=True)
-    print(f"[aff_train] {len(moved)}/{len(trainable)} trainable tensors moved, {len(encoder)} encoder "
+    print(f"[{tag}] val: " + ", ".join(f"{k[4:]} {v:.4f}" for k, v in val.items()
+                                        if k.startswith("val/")), flush=True)
+    print(f"[{tag}] {len(moved)}/{len(trainable)} trainable tensors moved, {len(encoder)} encoder "
           f"tensors bit-equal; step time {statistics.median(steady):.2f} ms (median of steps "
-          f"{WARM_STEPS}..{AFF_STEPS - 1}, spread {min(steady):.1f}-{max(steady):.1f} ms, host "
+          f"{WARM_STEPS}..{steps - 1}, spread {min(steady):.1f}-{max(steady):.1f} ms, host "
           f"clock per step incl. the batch's copy and a fetch of its metrics; step 0 "
           f"{result.history[0]['step_ms']:.1f} ms); on {card}", flush=True)
     return result.model
 
 
-def phase_hier_eval(dev: torch.device, card: str, trained) -> dict:
-    """(l) The hierarchical eval of the disk run with (k)'s detector; returns
-    the launch counts of its run."""
+def phase_hier_eval(dev: torch.device, card: str, trained, tag: str = "hier_eval",
+                    policy_run: Path = DISK_RUN, policy_step: int = 2 * DISK_STEPS,
+                    aff_run: Path = AFF_RUN, aff_steps: int = AFF_STEPS,
+                    log_dir: Path = HIER_DIR, extra=()) -> dict:
+    """(l) The hierarchical eval of the disk run with (k)'s detector ((ah):
+    ``policy_run`` with ``aff_run``'s detector and ``extra`` flags); returns
+    the launch counts of its run, its env-steps/s and ``aff_flush_s`` per
+    prediction."""
     from hulc2_torch import kernels
     from hulc2_torch.evaluation import evaluate_policy
     from hulc2_torch.evaluation.loading import load_affordance
 
-    pred = load_affordance(AFF_RUN, device=dev)
-    saved = torch.load(AFF_RUN / "saved_models" / f"{AFF_STEPS}.pt", map_location="cpu",
+    pred = load_affordance(aff_run, device=dev)
+    saved = torch.load(aff_run / "saved_models" / f"{aff_steps}.pt", map_location="cpu",
                        weights_only=True)["model"]
     loaded = {k: v.cpu() for k, v in pred.model.state_dict().items()}
     mine = {k: v.cpu() for k, v in trained.state_dict().items()}
     if not all(torch.equal(loaded[k], saved[k]) and torch.equal(loaded[k], mine[k]) for k in saved):
         fail("the evaluation's detector differs from the checkpoint")
     del pred
-    shutil.rmtree(HIER_DIR, ignore_errors=True)
+    shutil.rmtree(log_dir, ignore_errors=True)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     merged = evaluate_policy.main([
-        "--train-dir", str(DISK_RUN), "--aff-train-dir", str(AFF_RUN), "--fake-env",
+        "--train-dir", str(policy_run), "--aff-train-dir", str(aff_run), *extra, "--fake-env",
         "--device-render", "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS),
         "--num-sequences", str(DISK_CHAINS), "--ep-len", str(EVAL_EP_LEN), "--log-dir",
-        str(HIER_DIR), "--device", "cuda"])
+        str(log_dir), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    if not (HIER_DIR / "results.json").is_file():
-        fail("the hierarchical evaluation wrote no results.json")
-    diag = json.loads((HIER_DIR / "eval_diagnostics.json").read_text())
+    if not (log_dir / "results.json").is_file():
+        fail(f"the hierarchical evaluation of {aff_run.name} wrote no results.json")
+    diag = json.loads((log_dir / "eval_diagnostics.json").read_text())
     h, records = diag["hierarchical"], diag["subtask_records"]
     if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or len({r["chain"] for r in records}) != DISK_CHAINS:
         fail(f"unexpected results: {merged['latest']}")
@@ -1064,17 +1145,17 @@ def phase_hier_eval(dev: torch.device, card: str, trained) -> dict:
              f"{diag['dispatches']} dispatches")
     rate = diag["total_env_steps"] / diag["wall_clock_s"]
     flush_ms = 1e3 * diag["timings_s"]["aff_flush_s"] / h["aff_predictions"]
-    print(f"[hier_eval] step {2 * DISK_STEPS} of {DISK_RUN.name} with step {AFF_STEPS} of "
-          f"{AFF_RUN.name} ({len(saved)} detector tensors equal the checkpoint's): {DISK_CHAINS} "
+    print(f"[{tag}] step {policy_step} of {policy_run.name} with step {aff_steps} of "
+          f"{aff_run.name} ({len(saved)} detector tensors equal the checkpoint's): {DISK_CHAINS} "
           f"chains, {DISK_ENVS} envs in {DISK_COHORTS} cohorts, avg_seq_len "
           f"{merged['latest']['avg_seq_len']:.3f}; {h['aff_predictions']} affordance predictions, "
           f"{h['approaches']} approaches, {h['approach_steps']} approach steps; "
           f"{diag['total_env_steps']} env steps in {diag['wall_clock_s']:.2f} s = {rate:.1f} "
           f"env-steps/s, {diag['dispatches']} dispatches; aff_flush_s {flush_ms:.2f} ms per "
           f"prediction; whole entry point {wall_s:.1f} s; launches {launches}; on {card}", flush=True)
-    print(f"[hier_eval] host time, summed over cohorts: " + ", ".join(
+    print(f"[{tag}] host time, summed over cohorts: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in diag["timings_s"].items()), flush=True)
-    return launches
+    return {"launches": launches, "rate": rate, "flush_ms": flush_ms}
 
 
 def eval_diag(log_dir: Path, what: str) -> dict:
@@ -2112,6 +2193,165 @@ def slice_phases(dev: torch.device, card: str) -> tuple:
             rw_kernel)
 
 
+def aff_losses(cfg: dict, device: torch.device, dtype: torch.dtype = torch.float32,
+               steps: int = 2) -> list:
+    """The total losses of ``steps`` train steps of the detector of ``cfg`` on
+    synthetic 48 px frames (``tools/profile_affordance.synthetic_train_step``:
+    the same weights, batches and offsets on any device, in ``dtype``)."""
+    from hulc2_torch.tools.profile_affordance import synthetic_train_step
+
+    _, step = synthetic_train_step(cfg, device, frame_hw=48, n_batches=steps, dtype=dtype)
+    return [step()["total_loss"].item() for _ in range(steps)]
+
+
+def phase_aff_options_reference(dev: torch.device) -> float:
+    """(ag) Two train steps of a small detector of each new option in fp32 on
+    the card and in fp64 on the CPU, same weights, batches and offsets,
+    cuDNN deterministic: losses within rel 1e-5 (the CPU's own fp32 steps
+    part from its fp64 ones by up to 1.06e-5 on ``rn50_clip_pixel``, so an
+    fp32 CPU reference could not hold that bound); then the bf16 decoder
+    card against CPU within rel 1e-2 and against the card's fp32 within 5%.
+    Returns the largest fp32 gap."""
+    from hulc2_torch.configs.affordance import affordance_config
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    worst = 0.0
+    try:
+        t0 = time.perf_counter()
+        for name, (group, overrides) in AFF_OPTION_CASES.items():
+            cfg = affordance_config([f"aff_detection={group}", *AFF_SMALL, *overrides])
+            cpu, card = aff_losses(cfg, torch.device("cpu"), torch.float64), aff_losses(cfg, dev)
+            gap = max(abs(a - b) / max(abs(a), 1e-6) for a, b in zip(cpu, card))
+            worst = max(worst, gap)
+            if gap > 1e-5 or not all(map(math.isfinite, card)):
+                fail(f"{name}: the small detector's losses on the card {card} and the CPU {cpu}")
+        print(f"[aff_options] {len(AFF_OPTION_CASES)} small detectors ("
+              + ", ".join(AFF_OPTION_CASES) + f"), 2 train steps each: card fp32 vs CPU fp64 "
+              f"losses within rel {worst:.3g} (tol 1e-5), cuDNN deterministic; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cfg = affordance_config(["aff_detection=rn18_pixel", *AFF_SMALL, *AFF_BF16])
+        fp32 = aff_losses(affordance_config(["aff_detection=rn18_pixel", *AFF_SMALL]), dev)
+        cpu, card = aff_losses(cfg, torch.device("cpu")), aff_losses(cfg, dev)
+        dev_gap = max(abs(a - b) / abs(a) for a, b in zip(cpu, card))
+        prec_gap = max(abs(a - b) / abs(a) for a, b in zip(fp32, card))
+        print(f"[aff_options] bf16 decoder: card {card}, CPU {cpu} (rel {dev_gap:.3g}, tol 1e-2); "
+              f"the card's fp32 {fp32} (rel {prec_gap:.3g}, tol 5e-2)", flush=True)
+        if dev_gap > 1e-2 or prec_gap > 0.05:
+            fail(f"the bf16 decoder: card {card}, CPU {cpu}, fp32 {fp32}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return worst
+
+
+def phase_aff_low(dev: torch.device, card: str) -> dict:
+    """(ah) Labels mined from (r)'s 200/84 px dataset, the JAX default root's
+    ``rn18_pixel`` detector trained on them over hash sentence embeddings,
+    then the hierarchical eval of (s)'s ``cfg_low_level`` run with it;
+    returns the eval's launch counts, env-steps/s and ``aff_flush_s``."""
+    import os
+
+    from hulc2_torch.affordance import dataset_creation
+
+    os.environ["HULC2_ALLOW_STUB_EMBEDDINGS"] = "1"
+    shutil.rmtree(AFF_LOW_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    info = dataset_creation.main([str(LOW_DATA), "--out-dir", str(AFF_LOW_DATA)])
+    labels = {split: sum(len(c["static_cam"]) for c in info[split].values())
+              for split in ("training", "validation")}
+    print(f"[aff_low] {labels['training']} training and {labels['validation']} validation labels "
+          f"mined from {LOW_DATA.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(labels.values()):
+        fail(f"label mining of {LOW_DATA.name} found no labels in a split: {labels}")
+    detector = phase_aff_train(dev, card, labels, "aff_low_train", AFF_LOW_RUN, AFF_LOW_DATA,
+                               "rn18_pixel", AFF_LOW_STEPS)
+    if detector.text_tower or detector.lang_embed_dim != 1024:
+        fail("the rn18_pixel run built a token tower or another language width")
+    return phase_hier_eval(dev, card, detector, "aff_low_eval", LOW_RUN, LOW_STEPS, AFF_LOW_RUN,
+                           AFF_LOW_STEPS, AFF_LOW_DIR, ["--dataset-path", str(LOW_DATA)])
+
+
+def phase_aff_presets(dev: torch.device, card: str) -> dict:
+    """(ai) AFF_OPT_STEPS train steps of each preset at full width on
+    synthetic 96 px frames: losses finite, R3M's layer4 moved with its stem
+    through layer3 bit for bit as built, every other encoder bit for bit;
+    the median step's wall time, then BUSY_STEPS steps under the profiler:
+    device busy and the convolutions' share. Then ``train_depth``."""
+    from hulc2_torch.affordance import train_affordance, train_depth
+    from hulc2_torch.configs.affordance import affordance_config
+    from hulc2_torch.tools.profile_affordance import CONV, step_profile, synthetic_train_step
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    rows = {}
+    for name, overrides in AFF_PRESETS.items():
+        cfg = affordance_config(overrides)
+        aff = cfg["aff_detection"]
+        model, step = synthetic_train_step(cfg, dev)
+        fresh = train_affordance.build_detector(aff, cfg["seed"]).aff_stream.encoder.state_dict()
+        walls, losses = [], []
+        for _ in range(AFF_OPT_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            losses.append(step()["total_loss"].item())
+            walls.append(1e3 * (time.perf_counter() - t0))
+        now = {k: v.cpu() for k, v in model.aff_stream.encoder.state_dict().items()}
+        moved = sorted(k for k in fresh if not torch.equal(fresh[k], now[k]))
+        want = sorted(k for k in fresh if not aff["freeze_encoder"] and k.startswith("layer4_")
+                      and "running" not in k)
+        if moved != want or not all(map(math.isfinite, losses)):
+            fail(f"{name}: losses {losses}; encoder tensors moved {moved}, expected {want}")
+        busy, _, _, fams = step_profile(step, BUSY_STEPS)
+        wall = statistics.median(walls[WARM_STEPS:])
+        rows[name] = {"step_ms": wall, "busy_ms": busy, "conv_share": fams.get(CONV, 0.0) / busy}
+        print(f"[aff_presets] {name}: {aff['encoder_name']} "
+              f"{'trainable' if aff['freeze_encoder'] is False else 'frozen'}, "
+              f"{aff['fusion_type']}, {aff['depth_dist']} head, "
+              f"{aff['dataset'].get('label_type', 'pixel')} labels, decoder "
+              f"{aff.get('compute_dtype') or 'float32'}, batch {cfg['batch_size']} at "
+              f"{train_affordance.input_hw(aff)} px: losses " + ", ".join(f"{v:.4f}" for v in losses)
+              + f"; {len(want)} encoder tensors moved, {len(fresh) - len(want)} bit-equal; step "
+              f"{wall:.2f} ms (median of steps {WARM_STEPS}..{AFF_OPT_STEPS - 1}, host clock), "
+              f"device busy {busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle), convolutions "
+              f"{100 * rows[name]['conv_share']:.1f}% of it; on {card}", flush=True)
+        del model, step
+    shutil.rmtree(DEPTH_ONLY_RUN, ignore_errors=True)
+    res = train_depth.main(["--synthetic", "--device", "cuda", "--max-steps", str(DEPTH_ONLY_STEPS),
+                            "--max-epochs", str(DEPTH_ONLY_STEPS), "--run-dir", str(DEPTH_ONLY_RUN)])
+    cfg = json.loads((DEPTH_ONLY_RUN / "config.json").read_text())
+    fresh = train_affordance.build_detector(cfg["aff_detection"], cfg["seed"]).state_dict()
+    now = {k: v.cpu() for k, v in res.model.state_dict().items()}
+    moved = [k for k in fresh if k.startswith("aff_stream.encoder.") and not torch.equal(fresh[k], now[k])]
+    if res.step != DEPTH_ONLY_STEPS or not moved or any(
+            not math.isclose(line["total_loss"], line["depth_loss"], rel_tol=1e-6)
+            for line in res.history):
+        fail(f"train_depth: {res.step} steps, {len(moved)} encoder tensors moved, {res.history}")
+    print(f"[train_depth] {DEPTH_ONLY_STEPS} steps of the depth objective: depth losses "
+          + ", ".join(f"{line['depth_loss']:.4f}" for line in res.history)
+          + f"; {len(moved)} encoder tensors moved; on {card}", flush=True)
+    return rows
+
+
+def affordance_phases(dev: torch.device, card: str) -> dict:
+    """(ag)-(ai) and the bf16 gate of the pretrained presets; returns (ah)'s eval."""
+    from hulc2_torch.core.config import compose
+
+    phase_aff_options_reference(dev)
+    low = phase_aff_low(dev, card)
+    rows = phase_aff_presets(dev, card)
+    gaps = {name: phase_bf16_vs_fp32(dev, compose(root, overrides), name)
+            for name, (root, overrides) in BF16_PRESETS.items()}
+    print(f"[affordance] rn18_pixel + cfg_low_level hierarchical eval {low['rate']:.1f} env-steps/s, "
+          f"aff_flush_s {low['flush_ms']:.2f} ms per prediction; detector step (wall / busy ms, "
+          f"conv share): " + "; ".join(f"{k} {r['step_ms']:.2f} / {r['busy_ms']:.2f}, "
+                                       f"{100 * r['conv_share']:.1f}%" for k, r in rows.items())
+          + "; bf16 vs fp32 largest gaps: " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f"; on {card}", flush=True)
+    return low
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2144,7 +2384,7 @@ def main() -> int:
     phase_detector(dev)
     labels = phase_mining()
     detector = phase_aff_train(dev, card, labels)
-    hier_launches = phase_hier_eval(dev, card, detector)
+    hier_launches = phase_hier_eval(dev, card, detector)["launches"]
     para_launches = phase_paraphrase(dev, card)
     sweep_launches = phase_sweep(dev, card)
     single_launches = phase_single_step(dev, card)
@@ -2202,6 +2442,7 @@ def main() -> int:
                          "lang_only_train": single["lang_only"]})
     slice_paths, rw_kernel = slice_phases(dev, card)
     option_paths.update(slice_paths)
+    option_paths["aff_low_eval"] = affordance_phases(dev, card)
 
     entry = {
         "name": "shift_normalize",

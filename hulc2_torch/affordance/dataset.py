@@ -12,9 +12,13 @@ The on-disk layout that ``affordance/dataset_creation.py`` writes:
         depth float, lang_ann str, tcp_pos_world_frame
 
 Items carry the raw uint8 frame (resized on the device in the train step) and
-the pixel label at the training resolution. ``jitter_label_and_image`` is the
-RandomShift that moves the image and its pixel label together; its offsets
-are an input. Only pixel labels are ported (not the mask labels).
+the pixel label at the training resolution; with ``label_type="mask"`` also a
+float32 binary mask at the training resolution: the npz's ``mask``, or a
+disc of radius H // 20 around the labelled pixel, resized nearest.
+``jitter_label_and_image`` is the RandomShift that moves the image and its
+pixel label together, ``jitter_mask_and_image`` the same with the mask as a
+fourth channel (thresholded at 0.5 after the crop); their offsets are an
+input.
 """
 from __future__ import annotations
 
@@ -40,10 +44,15 @@ class AffordanceDataset:
     def __init__(self, data_dir, split: str = "training", cam: str = "static",
                  img_resize: int = 224, data_percent: float = 1.0,
                  episodes_file: str = "episodes_split.json",
-                 lang_embedder: Optional[Callable[[str], np.ndarray]] = None):
+                 lang_embedder: Optional[Callable[[str], np.ndarray]] = None,
+                 label_type: str = "pixel"):
         """``lang_embedder`` maps an annotation to the model's language input
-        (token ids for the token-tower detector); without it items carry the
-        annotation string under ``lang_ann``."""
+        (token ids for the token-tower detector, a sentence embedding
+        otherwise); without it items carry the annotation string under
+        ``lang_ann``. ``label_type`` is ``pixel`` or ``mask``."""
+        if label_type not in ("pixel", "mask"):
+            raise ValueError(f"label_type {label_type!r}: pixel or mask")
+        self.label_type = label_type
         self.data_dir = Path(data_dir)
         self.split = split
         self.cam = cam
@@ -71,6 +80,7 @@ class AffordanceDataset:
             centers = z["centers"]
             depth = float(z["depth"]) if "depth" in z.files else 0.0
             lang_ann = str(z["lang_ann"]) if "lang_ann" in z.files else ""
+            stored_mask = np.asarray(z["mask"], np.float32) if "mask" in z.files else None
         px = resize_pixel(centers[0, 1:], frame.shape[:2], (self.img_resize, self.img_resize))
         out = {
             "frame": frame,
@@ -79,6 +89,8 @@ class AffordanceDataset:
             "normalized_depth": np.float32(self.depth_norm.normalize(depth)),
             "idx": np.int64(idx),
         }
+        if self.label_type == "mask":
+            out["mask"] = self._mask(stored_mask, frame.shape[:2], centers[0, 1:])
         if self.lang_embedder is not None:
             lang = np.asarray(self.lang_embedder(lang_ann))
             out["lang"] = lang if np.issubdtype(lang.dtype, np.integer) else lang.astype(np.float32)
@@ -87,16 +99,50 @@ class AffordanceDataset:
         return out
 
 
+    def _mask(self, stored: Optional[np.ndarray], hw, center) -> np.ndarray:
+        """The stored mask, or a disc of radius H // 20 around ``center`` (row,
+        col), resized nearest to ``img_resize``."""
+        mask = stored
+        if mask is None:
+            mask = np.zeros(hw, np.float32)
+            yy, xx = np.ogrid[: hw[0], : hw[1]]
+            r, c = center
+            mask[(yy - r) ** 2 + (xx - c) ** 2 <= (hw[0] // 20) ** 2] = 1.0
+        n = self.img_resize
+        if mask.shape != (n, n):
+            rows = (np.arange(n) * mask.shape[0] / n).astype(int)
+            cols = (np.arange(n) * mask.shape[1] / n).astype(int)
+            mask = mask[np.ix_(rows, cols)]
+        return mask
+
+
+def _moved(px, offsets, pad: int, h: int, w: int):
+    import torch
+
+    moved = px + pad - offsets.to(px.dtype)
+    return torch.stack([moved[:, 0].clamp(0, h - 1), moved[:, 1].clamp(0, w - 1)], dim=-1)
+
+
 def jitter_label_and_image(imgs, px, offsets, pad: int):
     """imgs (B, H, W, C), px (B, 2) (row, col) and offsets (B, 2) in [0, 2 pad]
     -> the edge-clamped crop of each image by its offsets (a clamped-index
     gather) and the label moved with it, clamped into the image."""
+    from hulc2_torch.ops.preprocess import shift_from_offsets
+
+    _, h, w, _ = imgs.shape
+    return shift_from_offsets(offsets, imgs, pad), _moved(px, offsets, pad, h, w)
+
+
+def jitter_mask_and_image(imgs, mask, px, offsets, pad: int):
+    """``jitter_label_and_image`` with the (B, H, W) mask riding along as a
+    fourth channel through the same crop -> (images, the mask thresholded at
+    0.5 in the mask's dtype, the moved label)."""
     import torch
 
     from hulc2_torch.ops.preprocess import shift_from_offsets
 
     _, h, w, _ = imgs.shape
-    shifted = shift_from_offsets(offsets, imgs, pad)
-    moved = px + pad - offsets.to(px.dtype)
-    new_px = torch.stack([moved[:, 0].clamp(0, h - 1), moved[:, 1].clamp(0, w - 1)], dim=-1)
-    return shifted, new_px
+    stacked = torch.cat([imgs, mask[..., None].to(imgs.dtype)], dim=-1)
+    shifted = shift_from_offsets(offsets, stacked, pad)
+    return (shifted[..., :-1], (shifted[..., -1] > 0.5).to(mask.dtype),
+            _moved(px, offsets, pad, h, w))

@@ -51,6 +51,8 @@ CREATABLE = frozenset({
     "model.perceptual_encoder.rgb_gripper.compute_dtype",
     "model.perceptual_encoder.tactile.compute_dtype",
     "model.perceptual_encoder.rgb_static.tower_kwargs",
+    # the detector's bf16 decoder (hulc2_tpu/affordance/train_affordance.py:40)
+    "aff_detection.compute_dtype",
 })
 
 

@@ -3,7 +3,7 @@
     python -m hulc2_torch.evaluation.evaluate_policy --train-dir RUN \\
         [--checkpoint STEP | --all-checkpoints] \\
         --fake-env [--device-render] [--n-envs 32] [--cohorts 4] \\
-        [--aff-train-dir AFF_RUN [--aff-checkpoint STEP]] \\
+        [--aff-train-dir AFF_RUN [--aff-checkpoint STEP] [--aff-lang-embeddings NPY]] \\
         [--paraphrase-eval] [--single-step [--dataset-path DATASET]] \\
         [--num-sequences 1000] [--ep-len 360] [--log-dir DIR] [--device cuda|cpu]
     python -m hulc2_torch.evaluation.evaluate_policy --synthetic --fake-env ... [key=value ...]
@@ -27,8 +27,7 @@ renders their frames on the device. A policy without the text tower
 each task's embedding from ``--dataset-path``'s
 ``validation/<lang_folder>/embeddings.npy``, the table its training data was
 embedded with (``make_expert_dataset`` without ``--lang-tokens`` writes
-one); such a policy has no paraphrase protocol, and its hierarchical mode
-(a detector over embeddings) is not ported. Success is scored by the
+one); such a policy has no paraphrase protocol. Success is scored by the
 scene-obs oracle. The agents' draws come from generators seeded from the config's
 ``seed``. Writes ``results.json``, ``eval_diagnostics.json`` and snapshots in
 ``partial_results.json`` to ``--log-dir``.
@@ -40,7 +39,15 @@ where to go from the static frame and the task's canonical sentence, and a
 PD approach drives the arm there before the policy takes over
 (``batched_eval``). The log then reports the affordance predictions,
 approaches and approach steps, also in the ``"hierarchical"`` block of
-``eval_diagnostics.json``.
+``eval_diagnostics.json``. A token-tower detector gets the task's
+sentence as token ids; a detector over sentence embeddings (``text_tower``
+false, e.g. ``rn18_pixel``) gets each task's embedding from
+``--aff-lang-embeddings`` (an ``embeddings.npy``-style file), else the
+``hash_embed`` of ``--dataset-path``'s canonical annotation at the
+detector's width, the table the port's trainer embedded its labels with
+(``hulc2_tpu/evaluation/evaluate_policy.py:292-305``); under
+``--paraphrase-eval`` it keeps the canonical sentence's embedding, as in
+JAX.
 
 The other protocols of ``hulc2_tpu/evaluation/evaluate_policy.py``:
 ``--paraphrase-eval`` gives the policy, and the detector, each task's held-out
@@ -100,6 +107,23 @@ def embedding_goals(dataset_path: Path, lang_folder: str) -> Dict[str, np.ndarra
     dataset's table (``evaluate_policy.py:267-275``)."""
     ann_emb, task_to_ann = load_lang_embeddings(dataset_path, lang_folder)
     return {t: np.asarray(ann_emb[a], np.float32) for t, a in task_to_ann.items()}
+
+
+def sentence_detector_goals(dim: int, aff_lang_embeddings: Optional[str],
+                            dataset_path: Optional[str], lang_folder: str):
+    """(task -> the sentence detector's fp32 goal embedding, caption -> the
+    same) from the ``--aff-lang-embeddings`` file, else ``hash_embed`` at
+    ``dim`` of each task's canonical annotation in the dataset's table
+    (``hulc2_tpu/evaluation/evaluate_policy.py:292-301``)."""
+    from hulc2_torch.tools.auto_lang_annotator import hash_embed
+
+    if aff_lang_embeddings is not None:
+        ann_emb, task_to_ann = load_lang_embeddings_file(Path(aff_lang_embeddings))
+        goals = {t: np.asarray(ann_emb[a], np.float32) for t, a in task_to_ann.items()}
+    else:
+        _, task_to_ann = load_lang_embeddings(dataset_path, lang_folder)
+        goals = {t: hash_embed([a], dim)[0] for t, a in task_to_ann.items()}
+    return goals, {task_to_ann[t]: v for t, v in goals.items()}
 
 
 def save_eval_diagnostics(ev, log_dir: Path, args, sequences) -> Dict:
@@ -202,6 +226,9 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="an affordance run dir of the port: turns on the hierarchical mode")
     p.add_argument("--aff-checkpoint", type=int, default=None,
                    help="with --aff-train-dir: the affordance step to load (default: the newest)")
+    p.add_argument("--aff-lang-embeddings", default=None,
+                   help="with --aff-train-dir: an embeddings.npy-style file whose entries give a "
+                        "sentence detector each task's goal embedding")
     p.add_argument("--single-step", action="store_true",
                    help="evaluate only one subtask per chain: the per-task success-rate "
                         "protocol (chain_sr 1 is the overall SR)")
@@ -231,16 +258,10 @@ def main(argv: Optional[Sequence[str]] = None):
         rest = [a for a in (argv if argv is not None else sys.argv[1:]) if a != "--all-checkpoints"]
         return run_multiple.main(rest)
     if args.aff_train_dir is not None:
-        from hulc2_torch.affordance.train_affordance import unported
-        from hulc2_torch.core.checkpoint import load_run_config
-
         check_run_dir(p, Path(args.aff_train_dir), args.aff_checkpoint, "--aff-train-dir",
                        "--aff-checkpoint", "aff_detection")
-        reason = unported(load_run_config(Path(args.aff_train_dir))["aff_detection"])
-        if reason:
-            p.error(f"--aff-train-dir {args.aff_train_dir}: {reason}")
-    elif args.aff_checkpoint is not None:
-        p.error("--aff-checkpoint needs --aff-train-dir")
+    elif args.aff_checkpoint is not None or args.aff_lang_embeddings is not None:
+        p.error("--aff-checkpoint and --aff-lang-embeddings need --aff-train-dir")
     if not args.fake_env:
         p.error("--fake-env is required: the real CALVIN env is not ported")
 
@@ -269,13 +290,13 @@ def main(argv: Optional[Sequence[str]] = None):
     if tower and args.dataset_path is not None and not args.single_step:
         p.error("--dataset-path without --single-step gives a policy without the text tower "
                 "its goal embeddings: this policy tokenizes its goals")
-    if not tower:
-        if args.dataset_path is None:
-            p.error("a policy without the text tower takes its goals from --dataset-path's "
-                    "validation/<lang_folder>/embeddings.npy")
-        if args.aff_train_dir is not None:
-            p.error("the hierarchical mode of a policy without the text tower (a detector over "
-                    "sentence embeddings, text_tower=false) is not ported")
+    if not tower and args.dataset_path is None:
+        p.error("a policy without the text tower takes its goals from --dataset-path's "
+                "validation/<lang_folder>/embeddings.npy")
+    if args.aff_train_dir is not None and args.aff_lang_embeddings is None and tower and \
+            not load_run_config(Path(args.aff_train_dir))["aff_detection"].get("text_tower"):
+        p.error("a detector over sentence embeddings with a text-tower policy takes its goals "
+                "from --aff-lang-embeddings")
     val_dir = Path(args.dataset_path) / "validation" if args.dataset_path else None
     if args.single_step and val_dir is not None and val_dir.is_dir():
         # the reference protocol: initial states of oracle-detected windows
@@ -317,14 +338,25 @@ def main(argv: Optional[Sequence[str]] = None):
     variants = heldout if args.paraphrase_eval else None
     if not tower:
         lang = embedding_goals(args.dataset_path, cfg["datamodule"]["lang_folder"])
-    affordance = None
+    affordance, aff_lang, aff_variants = None, lang, None
     if args.aff_train_dir is not None:
-        # the captions the detector can be asked by name: canonical and held out
-        table = {VALIDATION_BANK[t]: lang[t] for t in TASK_NAMES}
-        for t in TASK_NAMES:
-            table.update(zip(heldout_annotations(t), heldout[t]))
         affordance = load_affordance(args.aff_train_dir, args.aff_checkpoint, device,
-                                     seed=cfg["seed"], lang_table=table)
+                                     seed=cfg["seed"])
+        if affordance.uses_tokens:
+            # the captions the detector can be asked by name: canonical and held out
+            aff_lang = dict(zip(TASK_NAMES, _tokens([VALIDATION_BANK[t] for t in TASK_NAMES])))
+            table = {VALIDATION_BANK[t]: aff_lang[t] for t in TASK_NAMES}
+            for t in TASK_NAMES:
+                table.update(zip(heldout_annotations(t), heldout[t]))
+            aff_variants = variants
+        else:
+            aff_lang, table = sentence_detector_goals(
+                affordance.model.lang_embed_dim, args.aff_lang_embeddings, args.dataset_path,
+                cfg["datamodule"]["lang_folder"])
+            if any(v.shape != (affordance.model.lang_embed_dim,) for v in aff_lang.values()):
+                p.error(f"the detector takes {affordance.model.lang_embed_dim}-d sentence "
+                        f"embeddings; the goal table's are {next(iter(aff_lang.values())).shape}")
+        affordance.lang_table = table
     # render at the preset's sizes, so no resize is needed
     env_hw = dict(static_hw=sizes["rgb_static"], gripper_hw=sizes["rgb_gripper"])
 
@@ -340,8 +372,8 @@ def main(argv: Optional[Sequence[str]] = None):
         cohorts.append((farm, agent))
     # scored by the scene-obs oracle, the evaluator's default
     ev = PipelinedEvaluator(cohorts, lang, ep_len=args.ep_len, affordance=affordance,
-                            aff_lang_embeddings=lang, lang_variants=variants,
-                            aff_lang_variants=variants if affordance is not None else None)
+                            aff_lang_embeddings=aff_lang, lang_variants=variants,
+                            aff_lang_variants=aff_variants)
     ev.partial_path = log_dir / "partial_results.json"
     results = ev.evaluate(sequences=sequences)
     if device.type == "cuda":

@@ -133,7 +133,8 @@ class ClipModifiedResNet(nn.Module):
                                         output_dim)
         self.output_dim = output_dim
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def pyramid(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The prepool feature maps [stem, layer1..layer4], without the pool."""
         y = conv_bn(self.conv1, self.bn1, x, relu=True)
         y = conv_bn(self.conv2, self.bn2, y, relu=True)
         y = conv_bn(self.conv3, self.bn3, y, relu=True)
@@ -143,4 +144,8 @@ class ClipModifiedResNet(nn.Module):
             for b in range(n_blocks):
                 y = getattr(self, f"layer{stage + 1}_{b}")(y)
             feats.append(y)
-        return self.attnpool(y), feats
+        return feats
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        feats = self.pyramid(x)
+        return self.attnpool(feats[-1]), feats

@@ -15,8 +15,10 @@ trunk to batch statistics; ``conv_bn`` folds it into the convolution before
 it, so a block's normalization costs no pass over its activations (under a
 bf16 autocast a separate fp32 BatchNorm would widen them to fp32), and
 without a graph on the card (a frozen trunk) runs the convolution, its bias,
-the residual add and the ReLU as one cuDNN call (``PERF.md`` §6, PR 10). ``frozen_stages`` detaches the first N levels of
-[stem, layer1..layer4] (the JAX module's stop-gradient on their outputs).
+the residual add and the ReLU as one cuDNN call (``PERF.md`` §6).
+``frozen_stages`` runs the first N levels of [stem, layer1..layer4] without
+a graph (the JAX module's stop-gradient on their outputs), so they take that
+fused path while a later level trains.
 Parameter names follow the JAX module names (``layer1_0.conv1``,
 ``ds_conv``, ``ds_bn``); ``utils/convert.convert_torchvision_resnet`` maps
 torchvision's names onto them.
@@ -172,16 +174,14 @@ class ResNet(nn.Module):
         stops after layer2, as smp's ``get_encoder(depth=3)`` does."""
         depth = 5 if depth is None else depth
         feats = [x]
-        y = conv_bn(self.conv1, self.bn1, x, relu=True)
-        if self.frozen_stages >= 1:
-            y = y.detach()
+        with torch.set_grad_enabled(torch.is_grad_enabled() and self.frozen_stages < 1):
+            y = conv_bn(self.conv1, self.bn1, x, relu=True)
         feats.append(y)  # stride 2
         y = F.max_pool2d(y, 3, 2, padding=1)
         for stage in range(1, depth):
-            for b in range(self.layers[stage - 1]):
-                y = getattr(self, f"layer{stage}_{b}")(y)
-            if self.frozen_stages >= stage + 1:
-                y = y.detach()
+            with torch.set_grad_enabled(torch.is_grad_enabled() and self.frozen_stages < stage + 1):
+                for b in range(self.layers[stage - 1]):
+                    y = getattr(self, f"layer{stage}_{b}")(y)
             feats.append(y)
         return feats
 

@@ -1,7 +1,8 @@
 """Automatic language annotation of play data (``hulc2_tpu/tools/auto_lang_annotator.py``).
 
 The port's numpy copy of ``detect_task_windows``, ``annotate_dataset`` and
-``hash_embed``, the part the dataset generator runs; relabelling, the task
+``hash_embed``, the part the dataset generator runs, and of the
+``require_stub_embeddings_ok`` gate; relabelling, the task
 statistics CLI and the external sentence encoders are not ported, and
 ``annotate_dataset`` takes its embedding function explicitly.
 
@@ -171,3 +172,20 @@ def hash_embed(sentences: List[str], dim: int = 384) -> np.ndarray:
         rng = np.random.default_rng(int.from_bytes(h, "little"))
         out[i] = rng.standard_normal(dim).astype(np.float32)
     return out
+
+
+def require_stub_embeddings_ok(context: str) -> None:
+    """Refuse an implicit fall-back to ``hash_embed``: metrics computed from
+    stub embeddings are noise that looks like signal. A call site that would
+    fall back without being asked passes through this gate, which lets it on
+    only with ``HULC2_ALLOW_STUB_EMBEDDINGS`` set to 1, true or yes
+    (``hulc2_tpu/tools/auto_lang_annotator.py:232-247``)."""
+    import os
+
+    if os.environ.get("HULC2_ALLOW_STUB_EMBEDDINGS", "") not in ("1", "true", "yes"):
+        raise RuntimeError(
+            f"{context}: no real language embeddings available, and stub hash "
+            "embeddings were not explicitly allowed. Success rates computed "
+            "from stub embeddings are meaningless. Provide an embeddings "
+            "table (embeddings.npy / --lang-model), or set "
+            "HULC2_ALLOW_STUB_EMBEDDINGS=1 to proceed knowingly (tests/smoke).")

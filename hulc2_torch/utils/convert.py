@@ -382,33 +382,78 @@ def clip_resnet(p: Mapping, stats: Mapping) -> SD:
     return {**out, **resnet_blocks(p, stats)}
 
 
+def _only(tree: Mapping, known, where: str) -> Mapping:
+    """``tree``, after checking it holds no key outside ``known``."""
+    extra = sorted(set(tree) - set(known))
+    if extra:
+        raise KeyError(f"{where}: unexpected flax keys {extra}")
+    return tree
+
+
+def fuser(p: Mapping) -> SD:
+    """A fuser's params: bare ``nn.Conv`` children (``conv``, ``conv0``,
+    ``conv1``: kernel [+ bias]) and the JAX package's ``Dense`` children
+    (``gamma``/``beta``, ``q``/``k``/``v``, ``q{c}``/``k{c}``/``v{c}``)."""
+    out: SD = {}
+    for name, child in p.items():
+        if "linear" in child:
+            out.update(_prefixed(name, linear(child)))
+        elif "kernel" in child:
+            out[f"{name}.weight"] = conv_kernel(child)
+            if "bias" in child:
+                out[f"{name}.bias"] = _f32(child["bias"])
+        else:
+            raise KeyError(f"fuser: unexpected flax params {name!r}: {sorted(child)}")
+    return out
+
+
 def lang_fusion_decoder(p: Mapping, stats: Mapping, n_blocks: int) -> SD:
     out: SD = {}
+    _only(p, [f"block{i}" for i in range(n_blocks)], "decoder")
     for i in range(n_blocks):
-        blk, blk_stats = p[f"block{i}"], stats[f"block{i}"]
+        blk = _only(p[f"block{i}"], ("lang_proj", "fuser", "conv1", "conv2"), f"block{i}")
+        blk_stats = stats[f"block{i}"]
         if "lang_proj" in blk:
             out.update(_prefixed(f"blocks.{i}.lang_proj", linear(blk["lang_proj"])))
+        if "fuser" in blk:
+            out.update(_prefixed(f"blocks.{i}.fuser", fuser(blk["fuser"])))
         for c in ("conv1", "conv2"):
             out[f"blocks.{i}.{c}.conv.weight"] = conv_kernel(blk[c]["conv"])
             out.update(_prefixed(f"blocks.{i}.{c}.bn", batch_norm(blk[c]["bn"], blk_stats[c]["bn"])))
     return out
 
 
+DEPTH_OUTPUTS = {"gaussian": ("depth_mu", "depth_sigma"),
+                 "logistic": ("prob_fc", "mean_fc", "scale_fc")}
+
+
 def detector_flax_to_torch(variables: Mapping[str, Any], aff_cfg: dict) -> Dict[str, torch.Tensor]:
     """The JAX ``AffordanceDetector``'s flax variables ({"params", "batch_stats"})
-    of the ``rn18_tokens_pixel`` family -> the port's ``state_dict``."""
+    of any ``aff_detection`` group -> the port's ``state_dict``: the text
+    tower (``text_tower``), the encoder (any ResNet, or CLIP's ModifiedResNet
+    with its attention pool), the decoder's blocks with their fusers' params,
+    the seg head and the depth head (``depth_dist``). A flax key the port has
+    no place for raises; a missing one raises here or in ``load_state_dict``."""
     p, stats = variables["params"], variables["batch_stats"]
-    stream, stream_stats = p["aff_stream"], stats["aff_stream"]
+    tower, depth = aff_cfg.get("text_tower", False), aff_cfg.get("depth_dist") or None
+    _only(p, ("aff_stream",) + (("lang_tower",) if tower else ()) + (("depth_stream",) if depth
+                                                                      else ()), "detector")
+    stream, stream_stats = _only(p["aff_stream"], ("encoder", "decoder", "seg_head"),
+                                 "aff_stream"), stats["aff_stream"]
+    encode = clip_resnet if aff_cfg["encoder_name"] == "clip_rn50" else resnet
     sd: SD = {
-        **_prefixed("lang_tower", clip_text(p["lang_tower"], aff_cfg["tower_layers"])),
-        **_prefixed("aff_stream.encoder", resnet(stream["encoder"], stream_stats["encoder"])),
+        **_prefixed("aff_stream.encoder", encode(stream["encoder"], stream_stats["encoder"])),
         **_prefixed("aff_stream.decoder", lang_fusion_decoder(
             stream["decoder"], stream_stats["decoder"], len(aff_cfg["decoder_channels"]))),
         "aff_stream.seg_head.weight": conv_kernel(stream["seg_head"]),
         "aff_stream.seg_head.bias": _f32(stream["seg_head"]["bias"]),
     }
-    for head in ("fc1", "fc2", "fc3", "depth_mu", "depth_sigma"):
-        sd.update(_prefixed(f"depth_stream.{head}", linear(p["depth_stream"][head])))
+    if tower:
+        sd.update(_prefixed("lang_tower", clip_text(p["lang_tower"], aff_cfg["tower_layers"])))
+    if depth:
+        heads = ("fc1", "fc2", "fc3") + DEPTH_OUTPUTS[depth]
+        for head in _only(p["depth_stream"], heads, "depth_stream"):
+            sd.update(_prefixed(f"depth_stream.{head}", linear(p["depth_stream"][head])))
     return _tensors(sd)
 
 

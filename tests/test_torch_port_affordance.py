@@ -36,6 +36,7 @@ from hulc2_torch.configs.affordance import affordance_config
 from hulc2_torch.ops.preprocess import resize
 from hulc2_torch.train.optim import make_optimizer
 from hulc2_torch.utils.convert import detector_flax_to_torch
+from _torch_port_affordance import random_variables, tokens
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = (
@@ -50,42 +51,6 @@ HW = 64
 
 def jax_config(overrides=()):
     return jax_cfg_lib.compose("train_affordance", ["aff_detection=rn18_tokens_pixel", *overrides])
-
-
-def tokens(rng, b):
-    toks = np.zeros((b, 77), np.int32)
-    for i in range(b):
-        n = int(rng.integers(4, 12))
-        toks[i, 0], toks[i, n - 1] = 49406, 49407
-        toks[i, 1:n - 1] = rng.integers(1, 49000, n - 2)
-    return toks
-
-
-def random_variables(shapes, seed):
-    """numpy values for the detector's flax variables: He-scaled kernels so the
-    18-layer encoder neither explodes nor vanishes, BN scales near 1, random
-    running means and variances."""
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        name, shape = str(path[-1].key), leaf.shape
-        if name == "scale":
-            return (1.0 + rng.uniform(-0.1, 0.1, shape)).astype(np.float32)
-        if name == "mean":
-            return rng.uniform(-0.2, 0.2, shape).astype(np.float32)
-        if name == "var":
-            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        if name == "kernel" and len(shape) == 4:
-            return (rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[:-1]))).astype(np.float32)
-        if name in ("kernel", "text_projection"):
-            bound = 1 / np.sqrt(np.prod(shape[:-1]))
-        elif name == "bias":
-            bound = 0.1
-        else:  # token / position embeddings
-            bound = 0.5
-        return rng.uniform(-bound, bound, shape).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 @pytest.fixture(scope="module")
@@ -107,8 +72,8 @@ def both():
 def test_config_equals_jax_composition():
     assert affordance_config(["aff_detection=rn18_tokens_pixel"]) == jax_config()
     assert affordance_config(SMALL) == jax_config(SMALL)
-    with pytest.raises(KeyError):
-        affordance_config(["aff_detection=rn18_pixel"])
+    assert affordance_config(["aff_detection=rn18_pixel"]) == jax_cfg_lib.compose(
+        "train_affordance", ["aff_detection=rn18_pixel"])
     with pytest.raises(KeyError):
         affordance_config(["aff_detection.no_such_key=1"])
 
@@ -174,16 +139,16 @@ def test_predictor_equals_jax(both):
         np.testing.assert_allclose(got["depth"], want["depth"], rtol=1e-6)
 
     imgs = [rng.integers(0, 256, (48, 48, 3), np.uint8) for _ in range(3)]
-    batch = tpred.predict_batch(imgs, langs, normal=jax_draws(1, 4)[:3])
+    batch = tpred.predict_batch(imgs, langs, draws=jax_draws(1, 4)[:3])
     for got, want in zip(batch, jpred.predict_batch(imgs, langs)):
         compare(got, want)
     for i in range(3):
-        single = tpred.predict_batch([imgs[i]], [langs[i]], normal=jax_draws(2 + i, 1))[0]
+        single = tpred.predict_batch([imgs[i]], [langs[i]], draws=jax_draws(2 + i, 1))[0]
         compare(single, jpred.predict(imgs[i], langs[i]))
         assert single["pixel"] == batch[i]["pixel"]
         np.testing.assert_allclose(single["softmax"], batch[i]["softmax"], atol=1e-6, rtol=0)
     mixed = [rng.integers(0, 256, s, np.uint8) for s in ((48, 48, 3), (96, 96, 3), (64, 64, 3))]
-    for got, want in zip(tpred.predict_batch(mixed, langs, normal=jax_draws(5, 4)[:3]),
+    for got, want in zip(tpred.predict_batch(mixed, langs, draws=jax_draws(5, 4)[:3]),
                          jpred.predict_batch(mixed, langs)):
         compare(got, want)
 
@@ -250,7 +215,7 @@ def test_three_train_steps_equal_jax(both):
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
     opt_state = tx.init(params)
-    ds = SyntheticAffordanceDataset(12, 48, seed=7)
+    ds = SyntheticAffordanceDataset(12, 48, 24, seed=7, lang_tokens=True)
     for s in range(3):
         items = [ds[4 * s + i] for i in range(4)]
         raw = {k: np.stack([it[k] for it in items]) for k in ("frame", "px", "normalized_depth", "lang")}
@@ -373,8 +338,8 @@ def test_mining_cli_keeps_splits_apart(expert_dir, tmp_path):
 def test_synthetic_dataset_equals_jax():
     from hulc2_tpu.affordance.train_affordance import SyntheticAffordanceDataset as JaxSynthetic
 
-    ours, theirs = SyntheticAffordanceDataset(5, 32, seed=2), JaxSynthetic(5, 32, 24, seed=2,
-                                                                         lang_tokens=True)
+    ours = SyntheticAffordanceDataset(5, 32, 24, seed=2, lang_tokens=True)
+    theirs = JaxSynthetic(5, 32, 24, seed=2, lang_tokens=True)
     for i in range(5):
         a, b = ours[i], theirs[i]
         assert sorted(a) == sorted(b)
@@ -389,7 +354,9 @@ def test_new_modules_import_without_jax():
             "hulc2_torch.affordance.depth_heads", "hulc2_torch.models.resnet",
             "hulc2_torch.configs.affordance", "hulc2_torch.agents.approach",
             "hulc2_torch.evaluation.loading", "hulc2_torch.evaluation.evaluate_policy",
-            "hulc2_torch.utils.convert"]
+            "hulc2_torch.utils.convert", "hulc2_torch.affordance.losses",
+            "hulc2_torch.affordance.train_depth", "hulc2_torch.affordance.merge_datasets",
+            "hulc2_torch.tools.profile_affordance", "hulc2_torch.tools.auto_lang_annotator"]
     code = (f"import sys; sys.path.insert(0, {str(REPO)!r}); import " + ", ".join(mods)
             + "; bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'flax', 'optax', 'hulc2_tpu')); print(bad); sys.exit(1 if bad else 0)")

@@ -36,7 +36,7 @@ def cuda_device():
 
 
 def _batch(n, hw, seed):
-    items = [SyntheticAffordanceDataset(n, hw, seed)[i] for i in range(n)]
+    items = [SyntheticAffordanceDataset(n, hw, 384, seed, lang_tokens=True)[i] for i in range(n)]
     return {k: torch.from_numpy(v) for k, v in collate(items).items() if k != "idx"}
 
 
@@ -104,7 +104,7 @@ def test_predictor_card_equals_cpu(cuda_device):
     for d in (torch.device("cpu"), cuda_device):
         pred = AffordancePredictor(build_detector(cfg["aff_detection"], seed=12).to(d),
                                    DepthNorm(1.0, 0.1), (224, 224))
-        res[d.type] = pred.predict_batch(frames, langs, normal=normal)
+        res[d.type] = pred.predict_batch(frames, langs, draws=normal)
     for a, c in zip(res["cpu"], res["cuda"]):
         top2 = np.sort(a["softmax"].ravel())[-2:]
         if top2[1] - top2[0] > 1e-4:

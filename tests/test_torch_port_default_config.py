@@ -64,12 +64,16 @@ def test_every_root_composes_as_jax(root, overrides):
 
 
 def test_registry_carries_every_policy_group():
-    """Every root of the JAX registry but the affordance one, and every
-    option of every group the port registers, as the JAX registry has them."""
-    assert set(cfg_lib.options("root")) == set(jax_cfg_lib.options("root")) - {"train_affordance"}
+    """Every root and every option of every group of the JAX registry, as the
+    JAX registry has them, the affordance ones included: each package
+    registers those when its ``configs.affordance`` module is imported."""
+    import hulc2_torch.configs.affordance  # noqa: F401
+    import hulc2_tpu.configs.affordance  # noqa: F401
+
+    assert set(cfg_lib.options("root")) == set(jax_cfg_lib.options("root"))
+    assert set(cfg_lib._GROUPS) == set(jax_cfg_lib._GROUPS)
     for group in cfg_lib._GROUPS:
-        theirs = {k: v for k, v in jax_cfg_lib._GROUPS[group].items() if k != "train_affordance"}
-        assert cfg_lib._GROUPS[group] == theirs, group
+        assert cfg_lib._GROUPS[group] == jax_cfg_lib._GROUPS[group], group
     assert len(cfg_lib._GROUPS) >= 20
 
 

@@ -180,27 +180,22 @@ def test_cli_evaluates_an_embedding_policy(tmp_path, monkeypatch, data_dir):
 
 
 def test_cli_refuses_for_an_embedding_policy(tmp_path, data_dir, capsys):
-    """Without ``--dataset-path``, with ``--paraphrase-eval`` and with a
-    detector (its embedding-input form is not ported), each by name; a
-    token policy's ``--dataset-path`` stays refused outside ``--single-step``."""
-    from hulc2_torch.affordance.train_affordance import build_detector
-    from hulc2_torch.configs.affordance import affordance_config
+    """Without ``--dataset-path``, with ``--paraphrase-eval`` and with
+    ``--aff-lang-embeddings`` but no detector, each by name; a token
+    policy's ``--dataset-path`` stays refused outside ``--single-step``."""
     from hulc2_torch.configs.flagship import flagship_config
     from hulc2_torch.core.checkpoint import CheckpointManager, save_run_config
     from hulc2_torch.models.build import build_policy
-    from test_torch_port_hierarchical import AFF_TINY
 
     run = _embedding_run(tmp_path / "run")
-    aff_cfg = affordance_config(AFF_TINY)
-    save_run_config(tmp_path / "aff", {**aff_cfg, "depth_norm": {"mean": 0.0, "std": 1.0}})
-    CheckpointManager(tmp_path / "aff").save(1, build_detector(aff_cfg["aff_detection"]), None)
     token_run = tmp_path / "token"
     save_run_config(token_run, flagship_config(LOW_TINY_MODEL))
     CheckpointManager(token_run).save(1, build_policy(flagship_config(LOW_TINY_MODEL)["model"]), None)
     data = ["--dataset-path", str(data_dir)]
     for argv, msg in (([], "takes its goals from --dataset-path"),
                       (data + ["--paraphrase-eval"], "needs a policy with the in-graph text tower"),
-                      (data + ["--aff-train-dir", str(tmp_path / "aff")], "is not ported")):
+                      (data + ["--aff-lang-embeddings", str(tmp_path / "emb.npy")],
+                       "need --aff-train-dir")):
         with pytest.raises(SystemExit):
             evaluate_policy.main(["--train-dir", str(run), "--fake-env", "--device", "cpu", *argv])
         assert msg in capsys.readouterr().err
