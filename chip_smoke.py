@@ -202,7 +202,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    steps: total loss = depth loss, the encoder moved; then phase 5's bf16
    gate on ``cfg_low_level_rw``, ``static_clip`` with RN50 and with
    ViT-B/32, and ``static_rgb_tactile``;
-42. the kernels line, the card line, and the final JSON line.
+42. (aj) the eval backends beyond the fake env, from here on, on the
+   recorded calvin_env contract (``tests/mock_calvin_env`` first on
+   ``PYTHONPATH``): the kernel at pad 0 at their shapes (1 and 4 frames of
+   200x200 and of 84x84, the cfg_low_level val pipeline's statistics) bit for
+   bit, with its device time per batched dispatch and per serial step; then
+   ``python -m hulc2_torch.evaluation.evaluate_policy --train-dir`` (s)'s run
+   ``--dataset-path`` (r) (its ``.hydra/merged_config.yaml`` written)
+   ``--aff-train-dir`` (ah)'s run ``--aff-lang-embeddings`` a table of its
+   hash embeddings, 8 chains on 8 envs in 2 cohorts with ``--process-envs``
+   in a subprocess, then again without it: calvin_env's native oracle chosen,
+   results.json and partial_results.json written, the same results and
+   records from both farms, one prediction per subtask start, every env
+   worker without a card or torch, shift_normalize launched exactly twice per
+   dispatch (the subprocess's own counts); env-steps/s and the farm's step
+   wait;
+43. (ak) the serial loop, ``--n-envs 1`` with the detector over 2 chains,
+   then with ``--heuristic-oracle``: one prediction per subtask start,
+   approach steps taken (JAX's agent raises there), the heuristic oracle
+   scoring calvin_env's info (JAX's raises there), twice per policy step;
+44. (al) ``real_world_eval.main`` with ``--env-factory
+   hulc2_torch.envs.fake_env:FakeCalvinEnv``, (s)'s run, (ah)'s detector and
+   two instructions: each approach moves the TCP more than 5 cm before the
+   policy steps, twice per policy step; then ``python -m
+   hulc2_torch.affordance.test_move_to_pt`` exits 0;
+45. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -395,6 +419,16 @@ AFF_PRESETS = {
 }
 DEPTH_ONLY_RUN = BUILD / "chip_smoke_train_depth"
 DEPTH_ONLY_STEPS = 3
+# the eval backends beyond the fake env: (s)'s cfg_low_level run with (ah)'s
+# rn18_pixel detector on the recorded calvin_env contract (tests/mock_calvin_env,
+# first on the eval's PYTHONPATH), batched with and without the process farm
+# (aj) and serial (ak), then the real-robot eval on the fake env (al)
+MOCK_CALVIN = Path(__file__).resolve().parent / "tests" / "mock_calvin_env"
+REAL_DIR = BUILD / "chip_smoke_real_env"
+AFF_TABLE = BUILD / "chip_smoke_aff_table.npy"
+REAL_EP_LEN = 40
+SERIAL_CHAINS = 2
+RW_EP_LEN = 20
 BF16_PRESETS = {
     "cfg_low_level_rw": ("cfg_low_level_rw", []),
     "static_clip RN50": ("cfg_low_level", ["model/perceptual_encoder=static_clip",
@@ -2352,6 +2386,243 @@ def affordance_phases(dev: torch.device, card: str) -> dict:
     return low
 
 
+def phase_kernel_real_env(dev: torch.device) -> dict:
+    """(aj) The kernel at pad 0 at the real env's shapes: one frame per camera
+    (a serial or real-robot step) and a cohort's 4 (a batched dispatch), 200 px
+    static and 84 px gripper with ``cfg_low_level``'s val statistics, bit
+    for bit; then the device time per dispatch and per serial step."""
+    from hulc2_torch.data.device_transforms import TRANSFORM_PRESETS
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    val = TRANSFORM_PRESETS["rand_shift"]["val"]
+    cams = {"rgb_static": 200, "rgb_gripper": 84}
+    err = 0.0
+    for n in (1, DISK_ENVS // DISK_COHORTS):
+        for seed, (cam, hw) in enumerate(cams.items()):
+            imgs, _ = bench.make_sets(n, hw, 0, 1, dev, 60 + seed)[0]
+            err = max(err, check_pad0("real_env", imgs, val[cam][-1]["mean"], val[cam][-1]["std"]))
+    rows = {}
+    for name, n in (("dispatch", DISK_ENVS // DISK_COHORTS), ("serial_step", 1)):
+        row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": err}
+        for seed, (cam, hw) in enumerate(cams.items()):
+            norm = val[cam][-1]
+            sets = bench.make_sets(n, hw, 0, bench.SETS, dev, 70 + seed)
+            row["ms"] += bench.device_ms(bench.rotating(
+                bench.kernel_fn(0, norm["mean"], norm["std"]), sets))
+            row["plain_ms"] += bench.device_ms(bench.rotating(
+                bench.plain_fn(0, norm["mean"], norm["std"]), sets))
+            bound_ms, row["bound_by"] = bench.bound(n, hw, 2)
+            row["bound_ms"] += bound_ms
+        rows[name] = row
+        print(f"[real_env] shift_normalize per {name} ({n} frame(s) of 200x200 and of 84x84, pad 0, "
+              f"bf16 out): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+    return rows
+
+
+def mock_calvin_env() -> dict:
+    """The environment of a subprocess that imports the recorded calvin_env
+    contract in place of the simulator, which this host lacks."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(MOCK_CALVIN), str(root), os.environ.get("PYTHONPATH", "")]))
+
+
+def write_aff_table() -> dict:
+    """(r)'s recorded render config, and an ``embeddings.npy``-style table of
+    (ah)'s detector goals: the 1024-d ``hash_embed`` it trained on, of each
+    sentence of (r)'s validation table. Returns the task -> sentence table."""
+    import numpy as np
+
+    from hulc2_torch.evaluation.evaluate_policy import load_lang_embeddings
+    from hulc2_torch.tools.auto_lang_annotator import hash_embed
+
+    (LOW_DATA / ".hydra").mkdir(exist_ok=True)
+    (LOW_DATA / ".hydra" / "merged_config.yaml").write_text("env: {}\ncameras: {}\n")
+    _, task_to_ann = load_lang_embeddings(LOW_DATA, "lang_annotations")
+    np.save(AFF_TABLE, {t: {"ann": [a], "emb": hash_embed([a], 1024)} for t, a in task_to_ann.items()},
+            allow_pickle=True)
+    return task_to_ann
+
+
+def real_env_eval(tag: str, log_dir: Path, extra: list) -> dict:
+    """``python -m hulc2_torch.evaluation.evaluate_policy`` without
+    ``--fake-env`` on (s)'s run with (ah)'s detector, in a subprocess whose
+    PYTHONPATH starts with the mock calvin_env; returns its results,
+    diagnostics and wall time. Its kernel counts are the subprocess's own
+    (``kernel_launches``), zero when it starts."""
+    shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "hulc2_torch.evaluation.evaluate_policy", "--train-dir",
+           str(LOW_RUN), "--dataset-path", str(LOW_DATA), "--aff-train-dir", str(AFF_LOW_RUN),
+           "--aff-lang-embeddings", str(AFF_TABLE), "--ep-len", str(REAL_EP_LEN), "--log-dir",
+           str(log_dir), "--device", "cuda", *extra]
+    t0 = time.perf_counter()
+    with open(log_dir / "eval.log", "w") as log:
+        proc = subprocess.run(cmd, env=mock_calvin_env(), stdout=log, stderr=subprocess.STDOUT,
+                              timeout=300)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print((log_dir / "eval.log").read_text()[-4000:], file=sys.stderr, flush=True)
+        fail(f"{tag}: evaluate_policy exited {proc.returncode}")
+    diag = eval_diag(log_dir, f"{tag} evaluation")
+    results = json.loads((log_dir / "results.json").read_text())["latest"]
+    h, records = diag["hierarchical"], diag["subtask_records"]
+    if h["aff_predictions"] != len(records) or not records:
+        fail(f"{tag}: {h} for {len(records)} subtask starts")
+    if h["approach_steps"] != sum(r["approach_steps"] for r in records):
+        fail(f"{tag}: the approach steps of the records do not add up")
+    check_launches(diag["kernel_launches"], diag["dispatches"], tag)
+    rate = diag["total_env_steps"] / diag["wall_clock_s"]
+    return {"results": results, "diag": diag, "wall_s": wall_s, "rate": rate,
+            "launches": diag["kernel_launches"]}
+
+
+def phase_real_env_batched(card: str) -> dict:
+    """(aj) The batched eval on the mock simulator, with and without the
+    process farm; returns each run's counts and rates."""
+    runs = {}
+    for name, extra in (("process_farm", ["--process-envs"]), ("env_farm", [])):
+        r = runs[name] = real_env_eval(f"real_{name}", REAL_DIR / name, [
+            "--n-envs", str(DISK_ENVS), "--cohorts", str(DISK_COHORTS), "--num-sequences",
+            str(DISK_CHAINS), *extra])
+        d = r["diag"]
+        if d["oracle"] != "CalvinTaskOracle":
+            fail(f"{name}: scored with {d['oracle']}, not calvin_env's native oracle")
+        if not (REAL_DIR / name / "partial_results.json").is_file():
+            fail(f"{name}: no partial_results.json")
+        if len({rec["chain"] for rec in d["subtask_records"]}) != DISK_CHAINS:
+            fail(f"{name}: unexpected records for {DISK_CHAINS} chains")
+        workers = d.get("env_workers", [])
+        if extra and (len(workers) != DISK_ENVS or any(
+                w["cuda_visible_devices"] != "" or w["torch_imported"] for w in workers)):
+            fail(f"{name}: env workers {workers}")
+        wait_ms = 1e3 * d["timings_s"]["sim_step_s"] / d["dispatches"]
+        r["wait_ms"] = wait_ms
+        print(f"[real_{name}] {DISK_CHAINS} chains, {DISK_ENVS} mock calvin_env envs in "
+              f"{DISK_COHORTS} cohorts{' (one worker process each)' if extra else ''}, ep_len "
+              f"{REAL_EP_LEN}, scored by {d['oracle']}: avg_seq_len {r['results']['avg_seq_len']:.3f};"
+              f" {d['hierarchical']['aff_predictions']} predictions, "
+              f"{d['hierarchical']['approaches']} approaches, {d['hierarchical']['approach_steps']} "
+              f"approach steps; {d['total_env_steps']} env steps in {d['wall_clock_s']:.2f} s = "
+              f"{r['rate']:.1f} env-steps/s, {d['dispatches']} dispatches, the farm's step wait "
+              f"{wait_ms:.2f} ms per dispatch (sim_step_s {d['timings_s']['sim_step_s']:.3f} s); "
+              f"whole subprocess {r['wall_s']:.1f} s; launches {r['launches']}"
+              + (f"; workers {[w['pid'] for w in workers]} with CUDA_VISIBLE_DEVICES='' and no "
+                 "torch" if extra else "") + f"; on {card}", flush=True)
+        print(f"[real_{name}] host time, summed over cohorts: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in d["timings_s"].items()), flush=True)
+    a, b = runs["process_farm"], runs["env_farm"]
+    if a["results"] != b["results"] or a["diag"]["subtask_records"] != b["diag"]["subtask_records"] \
+            or a["diag"]["hierarchical"] != b["diag"]["hierarchical"]:
+        fail("the process farm's results or records differ from the in-process farm's")
+    return runs
+
+
+def phase_real_env_serial(card: str) -> dict:
+    """(ak) The serial loop over one mock env, with the native oracle, then
+    with ``--heuristic-oracle``."""
+    runs = {}
+    for name, extra, oracle in (("serial", [], "CalvinTaskOracle"),
+                                ("serial_heuristic", ["--heuristic-oracle"], "SceneObsTaskOracle")):
+        r = runs[name] = real_env_eval(name, REAL_DIR / name, [
+            "--n-envs", "1", "--num-sequences", str(SERIAL_CHAINS), *extra])
+        d, h = r["diag"], r["diag"]["hierarchical"]
+        if d["oracle"] != oracle:
+            fail(f"{name}: scored with {d['oracle']}, expected {oracle}")
+        if h["approaches"] < 1 or h["approach_steps"] < 1:
+            fail(f"{name}: no approach on the mock env ({h})")
+        if d["total_env_steps"] != d["dispatches"] + h["approach_steps"]:
+            fail(f"{name}: env steps do not add up: {d['total_env_steps']}")
+        print(f"[{name}] {SERIAL_CHAINS} chains on one mock calvin_env env, ep_len {REAL_EP_LEN}, "
+              f"scored by {d['oracle']}: avg_seq_len {r['results']['avg_seq_len']:.3f}; "
+              f"{h['aff_predictions']} predictions for {len(d['subtask_records'])} subtask starts, "
+              f"{h['approaches']} approaches, {h['approach_steps']} approach steps; "
+              f"{d['total_env_steps']} env steps ({d['dispatches']} policy steps) in "
+              f"{d['wall_clock_s']:.2f} s = {r['rate']:.1f} env-steps/s; host time: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in d["timings_s"].items())
+              + f"; whole subprocess {r['wall_s']:.1f} s; launches {r['launches']}; on {card}",
+              flush=True)
+    return runs
+
+
+def phase_real_world(dev: torch.device, card: str, task_to_ann: dict) -> dict:
+    """(al) ``real_world_eval.main`` on the fake env with (s)'s policy and
+    (ah)'s detector, two instructions; then ``test_move_to_pt``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from hulc2_torch import kernels
+    from hulc2_torch.agents.real_world_agent import RealWorldAgent
+    from hulc2_torch.evaluation import real_world_eval
+
+    instructions = [task_to_ann["open_drawer"], task_to_ann["turn_on_led"]]
+    moves = []
+    reset = RealWorldAgent.reset
+
+    def recording_reset(self, caption=None):
+        before = np.array(self.env.robot_obs[:3])
+        reset(self, caption)
+        moves.append(float(np.linalg.norm(self.env.robot_obs[:3] - before)))
+
+    RealWorldAgent.reset = recording_reset
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            agent = real_world_eval.main([
+                "--train-dir", str(LOW_RUN), "--aff-train-dir", str(AFF_LOW_RUN),
+                "--aff-lang-embeddings", str(AFF_TABLE), "--dataset-path", str(LOW_DATA),
+                "--env-factory", "hulc2_torch.envs.fake_env:FakeCalvinEnv", "--ep-len",
+                str(RW_EP_LEN), "--device", "cuda"], stdin=io.StringIO("\n".join(instructions) + "\n"))
+        torch.cuda.synchronize(dev)
+    finally:
+        RealWorldAgent.reset = reset
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = RW_EP_LEN * len(instructions)
+    if len(moves) != len(instructions) or min(moves) <= 0.05 or \
+            agent.n_aff_predictions != len(instructions):
+        fail(f"real_world_eval: approaches moved the TCP by {moves} m, "
+             f"{agent.n_aff_predictions} predictions; printed {out.getvalue()!r}")
+    check_launches(launches, steps, "real_world_eval")
+    proc = subprocess.run([sys.executable, "-m", "hulc2_torch.affordance.test_move_to_pt"],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        fail(f"test_move_to_pt exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"[real_world] {instructions} on the fake env: approaches moved the TCP by "
+          + ", ".join(f"{m:.3f}" for m in moves) + f" m ({agent.n_move_steps} approach steps) "
+          f"before {RW_EP_LEN} policy steps each; {steps + agent.n_move_steps} env steps in "
+          f"{wall_s:.2f} s of the entry point = {(steps + agent.n_move_steps) / wall_s:.1f} "
+          f"env-steps/s (the policy's and the detector's load included); launches {launches}; "
+          f"test_move_to_pt: {proc.stdout.strip().splitlines()[-1]}; on {card}", flush=True)
+    return {"launches": launches, "rate": (steps + agent.n_move_steps) / wall_s}
+
+
+def real_env_phases(dev: torch.device, card: str) -> tuple:
+    """(aj)-(al); returns their paths' launch counts by name and the kernel's
+    rows at their shapes."""
+    rows = phase_kernel_real_env(dev)
+    task_to_ann = write_aff_table()
+    batched = phase_real_env_batched(card)
+    serial = phase_real_env_serial(card)
+    rw = phase_real_world(dev, card, task_to_ann)
+    print(f"[real_env] env-steps/s: process farm {batched['process_farm']['rate']:.1f} (step wait "
+          f"{batched['process_farm']['wait_ms']:.2f} ms a dispatch), in-process farm "
+          f"{batched['env_farm']['rate']:.1f} ({batched['env_farm']['wait_ms']:.2f} ms), serial "
+          f"{serial['serial']['rate']:.1f}, serial heuristic {serial['serial_heuristic']['rate']:.1f}"
+          f", real-robot eval {rw['rate']:.1f}; on {card}", flush=True)
+    paths = {f"real_{k}": v for k, v in batched.items()}
+    paths.update(serial)
+    paths["real_world"] = rw
+    return paths, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2443,6 +2714,8 @@ def main() -> int:
     slice_paths, rw_kernel = slice_phases(dev, card)
     option_paths.update(slice_paths)
     option_paths["aff_low_eval"] = affordance_phases(dev, card)
+    real_paths, real_kernel = real_env_phases(dev, card)
+    option_paths.update(real_paths)
 
     entry = {
         "name": "shift_normalize",
@@ -2455,7 +2728,7 @@ def main() -> int:
             low_train_launches, low_eval_launches))
         + sum(r["launches"]["shift_normalize"] for r in option_paths.values()),
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err,
-                           low_kernel["max_abs_err"],
+                           low_kernel["max_abs_err"], real_kernel["dispatch"]["max_abs_err"],
                            *(r["max_abs_err"] for r in preset_kernel.values()),
                            *(r["max_abs_err"] for r in rw_kernel.values())),
         "ms": kernel["ms"],
@@ -2481,6 +2754,7 @@ def main() -> int:
                                                        "max_abs_err")},
         "preset_static_launch": preset_kernel,
         "real_world_r3m_launch": rw_kernel,
+        "real_env": real_kernel,
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
           f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
@@ -2488,7 +2762,8 @@ def main() -> int:
           f"rand_shift_step per cfg_low_level train step (200 px pad 10 and 84 px pad 4), "
           f"preset_static_launch per static-camera launch of the real_world, real_world_square "
           f"and clip presets, real_world_r3m_launch per launch of cfg_low_level_rw's train "
-          f"step (static and gripper)",
+          f"step (static and gripper), real_env per batched dispatch (4 frames of 200 px and of "
+          f"84 px) and per serial step (1 of each) at pad 0",
           flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

@@ -12,8 +12,11 @@ where to go, not where the arm is), attaches the annotation of the task the
 scene-obs oracle sees completed around the event, and writes one npz per
 labelled frame plus ``episodes_split.json`` with the depth statistics.
 Without ``--cam-params`` the camera is the fake env's static camera at the
-dataset's frame size. Numpy only; the pybullet contact check of the JAX
-package is not ported (the gripper signal is taken as the contact).
+dataset's frame size. Numpy only. Given a simulator (``mine_labels(env=...)``,
+a calvin_env env with its ``robot``), each event is kept only when pybullet
+reports a contact of the robot after a reset to the event's recorded state
+(``contact_verified``; pybullet is imported only then); without one, the
+gripper signal is taken as the contact.
 
 One fault of the original is repaired: it names a label's episode dir
 ``episode_XX`` in both splits, and the splits' frame ids both start at 0, so
@@ -52,11 +55,26 @@ def detect_interactions(gripper_actions: np.ndarray) -> List[int]:
     return [int(i) for i in np.where((g[1:] == GRIPPER_CLOSED) & (g[:-1] != GRIPPER_CLOSED))[0] + 1]
 
 
+def contact_verified(frame: Dict, env=None) -> bool:
+    """Whether the robot touches something in ``frame``'s recorded state:
+    ``env`` is reset to it and pybullet's contact points are searched for the
+    robot's body (reference: data_labeler_lang.py:28-44). Without a
+    simulator the gripper-closure signal is accepted."""
+    if env is None:
+        return True
+    import pybullet as p  # type: ignore
+
+    env.reset(robot_obs=frame["robot_obs"], scene_obs=frame["scene_obs"])
+    pts = np.array(p.getContactPoints())
+    return len(pts) > 0 and bool((pts[:, 1] == env.robot.robot_uid).any())
+
+
 def mine_labels(data_dir, out_dir, camera: PinholeCamera, split: str = "training",
-                hist_frames: int = HIST_FRAMES, lang_window: int = 32, seed: int = 0,
+                hist_frames: int = HIST_FRAMES, lang_window: int = 32, env=None, seed: int = 0,
                 canonical_lang: bool = False, holdout_k: int = 0) -> Dict:
     """Labelled static-camera frames of one split, written under ``out_dir``;
-    returns {"episodes": {ep: [file, ...]}, "depths": [...]}."""
+    returns {"episodes": {ep: [file, ...]}, "depths": [...]}. With ``env``,
+    an event whose contact ``contact_verified`` does not find is dropped."""
     data_dir, out_dir = Path(data_dir), Path(out_dir)
     store = NpzFrameStore(data_dir, ["rgb_static", "robot_obs", "scene_obs"])
     ep_ids = load_ep_start_end_ids(data_dir, split)
@@ -69,6 +87,8 @@ def mine_labels(data_dir, out_dir, camera: PinholeCamera, split: str = "training
         frames = [store.load_frame(i) for i in range(int(start), int(end) + 1)]
         grip = np.array([f["robot_obs"][-1] for f in frames])
         for t in detect_interactions(grip):
+            if not contact_verified(frames[t], env):
+                continue
             tcp_world = np.asarray(frames[t]["robot_obs"][:3], np.float64)
             # the task the oracle sees completed around the interaction
             t_end = min(t + lang_window, len(frames) - 1)

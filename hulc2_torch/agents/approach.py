@@ -10,8 +10,9 @@ machine*: ``action(tcp_pos, tcp_orn)`` returns ONE ``(pos, orn, gripper)``
 action per call (or ``None`` when the approach is finished), letting some
 envs approach while the rest run the policy in the same lockstep round.
 
-The port's copy of ``hulc2_tpu/agents/approach.py`` (numpy only); the blocking
-``BaseAgent.move_to`` that drives it in a loop there is not ported.
+The port's copy of ``hulc2_tpu/agents/approach.py`` (numpy only);
+``agents/base_agent.BaseAgent.move_to`` drives it in a loop, so the blocking
+and incremental paths share one implementation.
 """
 from __future__ import annotations
 

@@ -1,9 +1,13 @@
 """The rollout agent: a batched policy carry and one fused policy call per env step.
 
-Counterpart of ``hulc2_tpu/agents/hulc2_agent.py:39-212``. The hierarchical
-mode's affordance approach runs in the batched evaluator
-(``evaluation/batched_eval.py``); the agent's single-env approach at
-``reset(caption)`` is not ported. The agent holds
+Counterpart of ``hulc2_tpu/agents/hulc2_agent.py:39-212``. The batched
+evaluator (``evaluation/batched_eval.py``) runs the hierarchical mode's
+approach for its K envs itself; an agent given an ``env`` and an
+``affordance`` predictor runs it for that one env at ``reset(caption)``: the
+predicted pixel and depth are deprojected through the env's static camera,
+and when the pixel is more than ``MOVE_THRESHOLD_PX`` from the TCP's the
+blocking ``BaseAgent.move_to`` drives the arm there (raised by ``offset``)
+before the carry restarts. The agent holds
 no model state in Python: the policy's state of its ``n_envs`` envs is a
 device-resident ``PolicyCarry``; ``reset_env_slot`` restarts one env's slice
 of it. Each ``step_async`` copies the observations (K frames, the depth
@@ -29,21 +33,33 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from hulc2_torch.agents.base_agent import BaseAgent
 from hulc2_torch.data.device_transforms import make_batch_transform
 from hulc2_torch.data.statistics import DatasetStatistics
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
+from hulc2_torch.evaluation.batched_eval import MOVE_THRESHOLD_PX
 from hulc2_torch.train.steps import make_fused_policy_step, make_fused_render_policy_step
 
 
-class Hulc2Agent:
+class Hulc2Agent(BaseAgent):
     def __init__(self, model: Hulc2, dm_cfg: dict, seed: int = 0, n_envs: int = 1,
                  fused_step=None, device_render: Optional[dict] = None,
-                 stats: Optional[DatasetStatistics] = None):
+                 stats: Optional[DatasetStatistics] = None, env=None, affordance=None,
+                 target_orn=None, offset=(0.0, 0.0, 0.1)):
         """``model`` lives on the device the agent runs on. ``fused_step``
         shares one agent's step function with the others of an evaluator.
         ``device_render`` = {"static_hw": H, "gripper_hw": h} renders the fake
         env's frames (and depth_static) on the device from its state floats.
-        ``stats`` are the training split's statistics."""
+        ``stats`` are the training split's statistics. ``env`` (one env) and
+        ``affordance`` (an ``AffordancePredictor``) are for the single-env
+        approach at ``reset(caption)``; ``target_orn`` and ``offset`` are its
+        orientation and its offset above the target."""
+        super().__init__(env, target_orn=target_orn, offset=offset)
+        self.affordance = affordance
+        self._cam = None  # the env's static camera, built at the first approach
+        # the single-env hierarchical mode's counts
+        self.n_aff_predictions = 0
+        self.n_approaches = 0
         self.model = model
         self.n_envs = n_envs
         self.device = next(model.parameters()).device
@@ -89,6 +105,44 @@ class Hulc2Agent:
             hidden = self.carry.hidden
             for h in hidden if isinstance(hidden, tuple) else (hidden,):
                 h[:, i] = 0
+
+    def _host_camera(self):
+        """The env's static camera, built from its picklable parameters."""
+        if self._cam is None:
+            from hulc2_torch.envs.camera import PinholeCamera
+
+            self._cam = PinholeCamera(**self.env.get_camera_params())
+        return self._cam
+
+    def reset(self, caption: Optional[str] = None) -> None:
+        """A new subtask: with an affordance predictor and a caption, approach
+        the predicted target when its pixel is more than ``MOVE_THRESHOLD_PX``
+        from the TCP's (``hulc2_tpu/agents/hulc2_agent.py:121-130``); then
+        restart the carry of every env."""
+        if caption is not None and self.affordance is not None:
+            target_pos, pred_px = self.get_aff_pred(caption)
+            tcp_pos, _, _ = self._robot_state()
+            tcp_px = self._host_camera().project(np.array([*tcp_pos, 1.0]))
+            if np.linalg.norm(np.asarray(pred_px) - np.asarray(tcp_px)) > MOVE_THRESHOLD_PX:
+                self.n_approaches += 1
+                self.move_to(target_pos + self.offset, gripper_action=1)
+        self.carry = self.model.init_carry(self.n_envs, self.device)
+
+    def get_aff_pred(self, caption: str):
+        """(world target, pixel): the predictor's pixel for the env's static
+        frame and ``caption`` (looked up in its ``lang_table``), deprojected
+        with the predicted depth, else the frame's depth map (reference:
+        lmp_agent.py:145-194)."""
+        obs = self.env.get_obs()
+        pred = self.affordance.predict(obs["rgb_obs"]["rgb_static"], caption)
+        self.n_aff_predictions += 1
+        pixel = pred["pixel"]
+        cam = self._host_camera()
+        if "depth" in pred:
+            target = cam.deproject_single_depth(pixel, pred["depth"])
+        else:
+            target = cam.deproject(pixel, obs["depth_obs"]["depth_static"])
+        return np.asarray(target), np.asarray(pixel)
 
     def _to_device(self, a) -> torch.Tensor:
         """A host array on the agent's device. On the card the copy goes

@@ -10,8 +10,7 @@ Conventions: intrinsics K (3x3); ``T_world_cam`` (4x4) maps camera-frame
 points into world frame; pixels are (u, v) = (col, row); depth is the +z
 distance along the camera axis.
 
-The port's copy of ``hulc2_tpu/envs/camera.py`` without the OpenGL-matrix
-constructor (calvin_env's cameras, not ported).
+The port's copy of ``hulc2_tpu/envs/camera.py``.
 """
 from __future__ import annotations
 
@@ -34,6 +33,23 @@ class PinholeCamera:
         K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
         T = np.eye(4) if T_world_cam is None else np.asarray(T_world_cam, np.float64)
         return cls(width, height, K, T, name)
+
+    @classmethod
+    def from_gl_matrices(cls, width, height, projection_matrix, view_matrix, name="static"):
+        """Build from OpenGL/pybullet camera matrices (calvin_env cameras
+        carry ``projectionMatrix``/``viewMatrix`` as column-major float
+        lists). The GL camera (y-up, -z forward) is converted to the CV
+        convention used here (y-down, +z forward), which matches pybullet's
+        top-to-bottom image row order."""
+        P = np.asarray(projection_matrix, np.float64).reshape(4, 4, order="F")
+        V = np.asarray(view_matrix, np.float64).reshape(4, 4, order="F")
+        fx = P[0, 0] * width / 2.0
+        fy = P[1, 1] * height / 2.0
+        cx = (1.0 - P[0, 2]) * width / 2.0
+        cy = (1.0 + P[1, 2]) * height / 2.0
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+        T_cam_world = np.diag([1.0, -1.0, -1.0, 1.0]) @ V  # GL cam -> CV cam
+        return cls(width, height, K, np.linalg.inv(T_cam_world), name)
 
     def to_params(self) -> Dict:
         """Keyword arguments that rebuild the camera."""

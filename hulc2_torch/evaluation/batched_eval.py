@@ -27,7 +27,8 @@ step budget; when it is done, the env's policy carry restarts.
 
 Two faults of the original are repaired here: ``evaluate`` resets the list
 of finished chains with the rest of its per-run state, and the partial
-results file is replaced atomically. The module imports no torch: the device
+results file is replaced atomically. Unlike the original, the partial file
+also gets a last snapshot when the run ends. The module imports no torch: the device
 action is fetched by ``_AsyncFetch``, which imports it only for a tensor.
 """
 from __future__ import annotations
@@ -455,6 +456,9 @@ class PipelinedEvaluator:
         dt = time.time() - t0
         self.total_env_steps = n_steps
         self.wall_clock_s = dt
+        if self.partial_path is not None:
+            # the last snapshot: a run shorter than one curve window leaves one too
+            self._dump_partial(n_jobs, dt, n_steps)
         logger.info("batched eval: %d chains in %.1f s (%.0f env-steps/s)",
                     n_jobs, dt, n_steps / max(dt, 1e-9))
         logger.info("stage timings (s, summed over cohorts): %s",

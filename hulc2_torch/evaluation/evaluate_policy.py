@@ -1,4 +1,4 @@
-"""CALVIN chain evaluation of a policy on the interactive fake env.
+"""CALVIN chain evaluation of a policy, on the fake env or the CALVIN simulator.
 
     python -m hulc2_torch.evaluation.evaluate_policy --train-dir RUN \\
         [--checkpoint STEP | --all-checkpoints] \\
@@ -6,10 +6,11 @@
         [--aff-train-dir AFF_RUN [--aff-checkpoint STEP] [--aff-lang-embeddings NPY]] \\
         [--paraphrase-eval] [--single-step [--dataset-path DATASET]] \\
         [--num-sequences 1000] [--ep-len 360] [--log-dir DIR] [--device cuda|cpu]
+    python -m hulc2_torch.evaluation.evaluate_policy --train-dir RUN --dataset-path DATASET \\
+        [--n-envs 8 [--cohorts 2] [--process-envs]] [--heuristic-oracle] [other flags as above]
     python -m hulc2_torch.evaluation.evaluate_policy --synthetic --fake-env ... [key=value ...]
 
-The port's counterpart of the fake-env branch of
-``hulc2_tpu/evaluation/evaluate_policy.py:124``. ``--train-dir`` evaluates a
+The port's counterpart of ``hulc2_tpu/evaluation/evaluate_policy.py:124``. ``--train-dir`` evaluates a
 policy trained by ``python -m hulc2_torch.training``: the model is built from
 the run's ``config.json`` and loaded from its newest checkpoint, or the step
 ``--checkpoint`` names; results go under the key "latest" or that step, in
@@ -32,6 +33,28 @@ scene-obs oracle. The agents' draws come from generators seeded from the config'
 ``seed``. Writes ``results.json``, ``eval_diagnostics.json`` and snapshots in
 ``partial_results.json`` to ``--log-dir``.
 
+Without ``--fake-env`` the chains run on the CALVIN simulator (calvin_env,
+built from ``--dataset-path``'s recorded ``.hydra/merged_config.yaml``
+through ``envs/calvin_wrapper.make_calvin_env``; the real branch of
+``hulc2_tpu/evaluation/evaluate_policy.py:361-458``). Each task's goal comes
+from that dataset's validation ``embeddings.npy``: its sentence's embedding,
+or its token ids for a policy with the text tower. ``--n-envs`` above 1 runs
+the batched evaluator over farms of simulators, in this process or, with
+``--process-envs``, each in its own worker process
+(``envs/process_farm.ProcessEnvFarm``; the workers never reach the card).
+``--n-envs 1`` runs the serial chain loop (``harness.evaluate_policy``) with
+one agent, whose ``reset(caption)`` runs the affordance approach in the
+hierarchical mode. Scoring uses calvin_env's native oracle
+(``envs/task_oracle.make_oracle``), or the scene-obs heuristic with
+``--heuristic-oracle`` or when calvin_env has no oracle to import (with a
+warning). A sentence detector's goals come from ``--aff-lang-embeddings``,
+else from the dataset's table, and must have the detector's width. Without
+calvin_env installed this branch raises its ``ImportError``; the recorded
+contract in ``tests/mock_calvin_env`` stands in for it on hosts without the
+simulator (put it first on ``PYTHONPATH``). One fault of the original is
+repaired here: its batched real-env branch never set ``partial_path``, so a
+long protocol on the simulator left no ``partial_results.json``.
+
 ``--aff-train-dir`` turns on the hierarchical (HULC++) mode with a detector
 trained by ``python -m hulc2_torch.affordance.train_affordance`` (its newest
 step, or ``--aff-checkpoint``): at every subtask start the detector predicts
@@ -53,7 +76,8 @@ The other protocols of ``hulc2_tpu/evaluation/evaluate_policy.py``:
 ``--paraphrase-eval`` gives the policy, and the detector, each task's held-out
 paraphrases (``tools/annotations.heldout_annotations``, never sampled for
 training with ``--holdout-paraphrases``) in place of its canonical sentence,
-chain ``i`` taking variant ``i % 4``. ``--single-step`` scores one subtask
+chain ``i`` taking variant ``i % 4`` (on the simulator, batched only: the
+serial loop takes one goal per task). ``--single-step`` scores one subtask
 per chain: from the oracle-detected windows of ``--dataset-path``'s
 validation split (``harness.dataset_singlestep_sequences``), or, without a
 split, from the first subtask of each generated chain, with a warning.
@@ -62,12 +86,14 @@ every saved step with the other flags and merges them into one
 ``results.json`` whose "best" is the step with the highest avg_seq_len.
 
 Runs on the card unless ``--device cpu`` is given, and refuses to run without
-one. Not ported yet: the real CALVIN env and the process env farm. The
-agents normalise robot_obs (and scene_obs) with the statistics the run
-trained with (``loading.run_statistics``); JAX's fake-env agents get none
+one. The agents normalise robot_obs (and scene_obs) with the statistics the
+run trained with (``loading.run_statistics``); JAX's fake-env agents get none
 (``hulc2_tpu/evaluation/evaluate_policy.py:339``), so a proprio encoder
 there sees raw robot_obs. A depth policy gets the envs' depth_static
-(rendered on the device with ``--device-render``).
+(rendered on the device with ``--device-render``). ``eval_diagnostics.json``
+also holds the kernels' launch counts of the process (``kernel_launches``)
+and, with ``--process-envs``, what each env worker reported
+(``env_workers``).
 """
 from __future__ import annotations
 
@@ -77,7 +103,7 @@ import logging
 import sys
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -126,10 +152,12 @@ def sentence_detector_goals(dim: int, aff_lang_embeddings: Optional[str],
     return goals, {task_to_ann[t]: v for t, v in goals.items()}
 
 
-def save_eval_diagnostics(ev, log_dir: Path, args, sequences) -> Dict:
+def save_eval_diagnostics(ev, log_dir: Path, args, sequences, extra: Optional[Dict] = None) -> Dict:
     """Write eval_diagnostics.json next to results.json: per-task success
-    and steps, the host-time split, the dispatch count, the throughput curve
-    and the per-subtask records."""
+    and steps, the host-time split, the dispatch count, the throughput curve,
+    the per-subtask records, the kernels' launch counts and ``extra``."""
+    from hulc2_torch import kernels
+
     per_task: dict = {}
     for r in ev.subtask_records:
         d = per_task.setdefault(r["task"], {"attempts": 0, "successes": 0, "steps_on_success": []})
@@ -160,6 +188,8 @@ def save_eval_diagnostics(ev, log_dir: Path, args, sequences) -> Dict:
         },
         "per_task": dict(sorted(per_task.items(), key=lambda kv: kv[1]["sr"])),
         "subtask_records": ev.subtask_records,
+        "kernel_launches": dict(kernels.LAUNCHES),
+        **(extra or {}),
     }
     (Path(log_dir) / "eval_diagnostics.json").write_text(json.dumps(diag, indent=1))
     return diag
@@ -189,14 +219,177 @@ def check_run_dir(p: argparse.ArgumentParser, run_dir: Path, step: Optional[int]
         p.error(f"{step_flag} {step}: the run has steps {steps}")
 
 
+class PolicyRollout:
+    """``rollout_fn(env, subtask) -> bool`` of ``harness.evaluate_policy``:
+    the agent's ``reset(caption)`` (the affordance approach in the
+    hierarchical mode), then up to ``ep_len`` policy steps, the oracle
+    checked after each (``hulc2_tpu/evaluation/evaluate_policy.py:103-121``;
+    reference: manager_aff_lmp.py:26-79). ``goals`` maps each caption to the
+    policy's goal. It keeps the counts ``save_eval_diagnostics`` reads: one
+    record per subtask, the policy steps (``n_dispatches``), the approach's
+    and the host time split."""
+
+    def __init__(self, agent, oracle, task_to_annotation: Dict[str, str],
+                 goals: Dict[str, np.ndarray], ep_len: int):
+        self.agent = agent
+        self.oracle = oracle
+        self.task_to_annotation = task_to_annotation
+        self.goals = goals
+        self.ep_len = ep_len
+        self.cohorts = [agent]  # one env, one agent
+        self.subtask_records: List[dict] = []
+        self.n_dispatches = 0
+        self.timings = {"approach_s": 0.0, "policy_step_s": 0.0, "sim_step_s": 0.0}
+        self.throughput_curve: List[dict] = []
+        self.wall_clock_s = 0.0
+
+    @property
+    def n_aff_predictions(self) -> int:
+        return self.agent.n_aff_predictions
+
+    @property
+    def n_approaches(self) -> int:
+        return self.agent.n_approaches
+
+    @property
+    def n_approach_steps(self) -> int:
+        return self.agent.n_move_steps
+
+    @property
+    def total_env_steps(self) -> int:
+        return self.n_dispatches + self.agent.n_move_steps
+
+    def __call__(self, env, subtask: str) -> bool:
+        caption = self.task_to_annotation[subtask]
+        moved = self.agent.n_move_steps
+        t0 = time.perf_counter()
+        self.agent.reset(caption)
+        self.timings["approach_s"] += time.perf_counter() - t0
+        start_info = env.get_info()
+        goal = {"lang": self.goals[caption]}
+        obs = env.get_obs()
+        success, steps = False, 0
+        while steps < self.ep_len and not success:
+            t0 = time.perf_counter()
+            action = self.agent.step(obs, goal)
+            t1 = time.perf_counter()
+            obs, _, _, info = env.step(action)
+            self.timings["policy_step_s"] += t1 - t0
+            self.timings["sim_step_s"] += time.perf_counter() - t1
+            steps += 1
+            success = subtask in self.oracle.get_task_info_for_set(start_info, info, [subtask])
+        self.n_dispatches += steps
+        self.subtask_records.append({"task": subtask, "success": success, "policy_steps": steps,
+                                     "approach_steps": self.agent.n_move_steps - moved})
+        return success
+
+
+def make_policy_rollout_fn(agent, oracle, task_to_annotation, lang_embeddings,
+                           ep_len: int) -> PolicyRollout:
+    """``hulc2_tpu/evaluation/evaluate_policy.py:103``'s signature:
+    ``lang_embeddings`` maps each caption to its goal."""
+    return PolicyRollout(agent, oracle, task_to_annotation, lang_embeddings, ep_len)
+
+
 def policy_has_text_tower(cfg: dict) -> bool:
     return (cfg["model"].get("language_encoder") or {}).get("_name_") == "clip_text"
 
 
 def _tokens(sentences: Sequence[str]) -> list:
+    """CLIP-BPE token ids of each sentence."""
     from hulc2_torch.utils.clip_tokenizer import tokenize
 
     return [np.asarray(t) for t in tokenize(list(sentences))]
+
+
+def real_env_goals(p: argparse.ArgumentParser, args, cfg: dict, tower: bool, affordance):
+    """The real env's goal tables from ``--dataset-path``'s validation
+    ``embeddings.npy`` (``hulc2_tpu/evaluation/evaluate_policy.py:372-438``):
+    (task -> sentence, task -> policy goal, task -> goal variants or None,
+    task -> detector goal, caption -> detector input, task -> detector goal
+    variants or None). A text-tower policy's goals are the sentences' token
+    ids; a sentence detector's table comes from ``--aff-lang-embeddings``,
+    else the dataset's, and must have the detector's width."""
+    from hulc2_torch.tools.annotations import heldout_annotations
+
+    ann_emb, task_to_ann = load_lang_embeddings(args.dataset_path, cfg["datamodule"]["lang_folder"])
+    if tower:
+        lang = dict(zip(task_to_ann, _tokens(list(task_to_ann.values()))))
+        variants = ({t: _tokens(heldout_annotations(t)) for t in task_to_ann}
+                    if args.paraphrase_eval else None)
+    else:
+        lang = {t: np.asarray(ann_emb[a], np.float32) for t, a in task_to_ann.items()}
+        variants = None
+    aff_lang = table = aff_variants = None
+    if affordance is not None:
+        if affordance.uses_tokens:
+            aff_lang = lang if tower else dict(zip(task_to_ann, _tokens(list(task_to_ann.values()))))
+            table = {task_to_ann[t]: v for t, v in aff_lang.items()}
+            aff_variants = variants
+        else:
+            dim = affordance.model.lang_embed_dim
+            aff_emb = (load_lang_embeddings_file(Path(args.aff_lang_embeddings))[0]
+                       if args.aff_lang_embeddings else ann_emb)
+            width = np.asarray(next(iter(aff_emb.values()))).shape[-1]
+            if width != dim:
+                p.error(f"affordance language embeddings are {width}-d but the affordance model "
+                        f"expects {dim}-d — pass --aff-lang-embeddings with a table produced by "
+                        "the affordance model's own encoder")
+            aff_lang = {t: np.asarray(aff_emb[a], np.float32) for t, a in task_to_ann.items()}
+            table = {a: np.asarray(e, np.float32) for a, e in aff_emb.items()}
+    return task_to_ann, lang, variants, aff_lang, table, aff_variants
+
+
+def evaluate_real_env(args, cfg: dict, model, stats, affordance, goals, sequences,
+                      log_dir: Path):
+    """The chains on the CALVIN simulator: batched over farms of ``--n-envs``
+    envs (in worker processes with ``--process-envs``), or one env through
+    the serial loop. Returns (results, the evaluator or the serial rollout,
+    extra diagnostics)."""
+    from functools import partial
+
+    from hulc2_torch.agents.hulc2_agent import Hulc2Agent
+    from hulc2_torch.envs.calvin_wrapper import EnvFarm, make_wrapped_calvin_env
+    from hulc2_torch.envs.process_farm import ProcessEnvFarm
+    from hulc2_torch.envs.task_oracle import make_oracle
+    from hulc2_torch.evaluation.batched_eval import PipelinedEvaluator
+
+    task_to_ann, lang, variants, aff_lang, table, aff_variants = goals
+    oracle = make_oracle(real_env=True, force_heuristic=args.heuristic_oracle)
+    extra = {"oracle": type(oracle).__name__}
+    if args.n_envs == 1:
+        env = make_wrapped_calvin_env(args.dataset_path)
+        agent = Hulc2Agent(model, cfg["datamodule"], seed=cfg["seed"] + 1, stats=stats, env=env,
+                           affordance=affordance)
+        rollout = make_policy_rollout_fn(agent, oracle, task_to_ann,
+                                         {task_to_ann[t]: v for t, v in lang.items()}, args.ep_len)
+        t0 = time.perf_counter()
+        results = harness.evaluate_policy(rollout, env, sequences=sequences)
+        rollout.wall_clock_s = time.perf_counter() - t0
+        return results, rollout, extra
+    cohorts, shared_step = [], None
+    try:
+        for c, size in enumerate(cohort_sizes(args.n_envs, args.cohorts)):
+            if args.process_envs:
+                farm = ProcessEnvFarm([partial(make_wrapped_calvin_env, args.dataset_path)] * size)
+            else:
+                farm = EnvFarm([make_wrapped_calvin_env(args.dataset_path) for _ in range(size)])
+            agent = Hulc2Agent(model, cfg["datamodule"], seed=cfg["seed"] + 1 + c, n_envs=size,
+                               fused_step=shared_step, stats=stats)
+            shared_step = shared_step or agent._fused_step
+            cohorts.append((farm, agent))
+        if args.process_envs:
+            extra["env_workers"] = [w for farm, _ in cohorts for w in farm.worker_info()]
+        ev = PipelinedEvaluator(cohorts, lang, ep_len=args.ep_len, oracle=oracle,
+                                affordance=affordance, aff_lang_embeddings=aff_lang,
+                                lang_variants=variants, aff_lang_variants=aff_variants)
+        ev.partial_path = log_dir / "partial_results.json"
+        results = ev.evaluate(sequences=sequences)
+    finally:
+        for farm, _ in cohorts:
+            if hasattr(farm, "close"):
+                farm.close()
+    return results, ev, extra
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -212,12 +405,19 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="with --train-dir: evaluate every checkpoint of the run, one after "
                         "another (run_multiple); the rest of the flags apply to each")
     p.add_argument("--fake-env", action="store_true",
-                   help="the interactive FakeCalvinEnv backend (the only one ported)")
+                   help="the interactive FakeCalvinEnv backend (default: the CALVIN simulator, "
+                        "which needs calvin_env and --dataset-path)")
     p.add_argument("--device-render", action="store_true",
                    help="render the fake env's frames on the device inside the policy step")
     p.add_argument("--n-envs", type=int, default=1, help="lockstep envs")
     p.add_argument("--cohorts", type=int, default=1,
                    help="cohorts of envs whose policy steps overlap with the others' host sims")
+    p.add_argument("--process-envs", action="store_true",
+                   help="each simulator in its own worker process, so that the envs step in "
+                        "parallel on host cores (the real env, --n-envs above 1)")
+    p.add_argument("--heuristic-oracle", action="store_true",
+                   help="score the real env with the scene-obs heuristic oracle even when "
+                        "calvin_env's native oracle is available")
     p.add_argument("--num-sequences", type=int, default=harness.NUM_SEQUENCES)
     p.add_argument("--ep-len", type=int, default=harness.EP_LEN)
     p.add_argument("--log-dir", default=None,
@@ -233,9 +433,10 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="evaluate only one subtask per chain: the per-task success-rate "
                         "protocol (chain_sr 1 is the overall SR)")
     p.add_argument("--dataset-path", default=None,
-                   help="a dataset root: with --single-step its validation split gives the "
-                        "initial states (oracle-detected task windows); for a policy without "
-                        "the text tower its embeddings.npy gives the goals")
+                   help="a dataset root: the real env's render config and goal table; with "
+                        "--single-step its validation split gives the initial states "
+                        "(oracle-detected task windows); for a policy without the text tower "
+                        "its embeddings.npy gives the goals")
     p.add_argument("--paraphrase-eval", action="store_true",
                    help="goals are each task's held-out paraphrases, rotated over the chains "
                         "(needs a policy with the in-graph text tower)")
@@ -262,8 +463,19 @@ def main(argv: Optional[Sequence[str]] = None):
                        "--aff-checkpoint", "aff_detection")
     elif args.aff_checkpoint is not None or args.aff_lang_embeddings is not None:
         p.error("--aff-checkpoint and --aff-lang-embeddings need --aff-train-dir")
+    if args.fake_env and args.process_envs:
+        p.error("--process-envs runs CALVIN simulators in worker processes: drop --fake-env")
     if not args.fake_env:
-        p.error("--fake-env is required: the real CALVIN env is not ported")
+        if args.dataset_path is None:
+            p.error("--dataset-path is required without --fake-env: the CALVIN env is built from "
+                    "its recorded render config and the goals come from its embeddings.npy")
+        if args.device_render:
+            p.error("--device-render renders the fake env's frames: it needs --fake-env")
+        if args.process_envs and args.n_envs < 2:
+            p.error("--process-envs steps a farm of envs: it needs --n-envs above 1")
+        if args.paraphrase_eval and args.n_envs == 1:
+            p.error("--paraphrase-eval rotates goals over the chains of the batched evaluator: "
+                    "on the CALVIN env it needs --n-envs above 1")
 
     import torch
 
@@ -273,6 +485,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from hulc2_torch.data.device_transforms import camera_sizes
     from hulc2_torch.envs.calvin_wrapper import EnvFarm
     from hulc2_torch.envs.fake_env import FakeCalvinEnv
+    from hulc2_torch.envs.task_oracle import make_oracle
     from hulc2_torch.evaluation.batched_eval import PipelinedEvaluator
     from hulc2_torch.evaluation.loading import load_affordance, load_policy, run_statistics
     from hulc2_torch.evaluation.tasks import TASK_NAMES
@@ -287,16 +500,17 @@ def main(argv: Optional[Sequence[str]] = None):
         p.error("--paraphrase-eval needs a policy with the in-graph text tower "
                 "(model.language_encoder clip_text): a policy without one cannot encode "
                 "sentences it never saw")
-    if tower and args.dataset_path is not None and not args.single_step:
-        p.error("--dataset-path without --single-step gives a policy without the text tower "
-                "its goal embeddings: this policy tokenizes its goals")
-    if not tower and args.dataset_path is None:
-        p.error("a policy without the text tower takes its goals from --dataset-path's "
-                "validation/<lang_folder>/embeddings.npy")
-    if args.aff_train_dir is not None and args.aff_lang_embeddings is None and tower and \
-            not load_run_config(Path(args.aff_train_dir))["aff_detection"].get("text_tower"):
-        p.error("a detector over sentence embeddings with a text-tower policy takes its goals "
-                "from --aff-lang-embeddings")
+    if args.fake_env:
+        if tower and args.dataset_path is not None and not args.single_step:
+            p.error("--dataset-path without --single-step gives a policy without the text "
+                    "tower its goal embeddings: this policy tokenizes its goals")
+        if not tower and args.dataset_path is None:
+            p.error("a policy without the text tower takes its goals from --dataset-path's "
+                    "validation/<lang_folder>/embeddings.npy")
+        if args.aff_train_dir is not None and args.aff_lang_embeddings is None and tower and \
+                not load_run_config(Path(args.aff_train_dir))["aff_detection"].get("text_tower"):
+            p.error("a detector over sentence embeddings with a text-tower policy takes its "
+                    "goals from --aff-lang-embeddings")
     val_dir = Path(args.dataset_path) / "validation" if args.dataset_path else None
     if args.single_step and val_dir is not None and val_dir.is_dir():
         # the reference protocol: initial states of oracle-detected windows
@@ -315,7 +529,6 @@ def main(argv: Optional[Sequence[str]] = None):
     t0 = time.time()
     device = resolve_device(args.device)
     set_precision_flags()
-    sizes = camera_sizes(cfg["datamodule"]["transforms"])
     stats = None
     if args.train_dir is not None:
         model, cfg, step = load_policy(args.train_dir, args.checkpoint)
@@ -329,57 +542,70 @@ def main(argv: Optional[Sequence[str]] = None):
         log_dir = Path(args.log_dir or "runs/torch_eval")
     model = model.to(device).eval()
     log_dir.mkdir(parents=True, exist_ok=True)
-    # goals: BPE token ids of each task's canonical validation sentence, for
-    # the policy's and the detector's text towers alike; the paraphrase
-    # protocol swaps in the held-out sentences. A policy without a tower
-    # gets the dataset's embedding of the same sentence.
-    lang = dict(zip(TASK_NAMES, _tokens([VALIDATION_BANK[t] for t in TASK_NAMES])))
-    heldout = {t: _tokens(heldout_annotations(t)) for t in TASK_NAMES}
-    variants = heldout if args.paraphrase_eval else None
-    if not tower:
-        lang = embedding_goals(args.dataset_path, cfg["datamodule"]["lang_folder"])
-    affordance, aff_lang, aff_variants = None, lang, None
+    affordance = None
     if args.aff_train_dir is not None:
         affordance = load_affordance(args.aff_train_dir, args.aff_checkpoint, device,
                                      seed=cfg["seed"])
-        if affordance.uses_tokens:
-            # the captions the detector can be asked by name: canonical and held out
-            aff_lang = dict(zip(TASK_NAMES, _tokens([VALIDATION_BANK[t] for t in TASK_NAMES])))
-            table = {VALIDATION_BANK[t]: aff_lang[t] for t in TASK_NAMES}
-            for t in TASK_NAMES:
-                table.update(zip(heldout_annotations(t), heldout[t]))
-            aff_variants = variants
-        else:
-            aff_lang, table = sentence_detector_goals(
-                affordance.model.lang_embed_dim, args.aff_lang_embeddings, args.dataset_path,
-                cfg["datamodule"]["lang_folder"])
-            if any(v.shape != (affordance.model.lang_embed_dim,) for v in aff_lang.values()):
-                p.error(f"the detector takes {affordance.model.lang_embed_dim}-d sentence "
-                        f"embeddings; the goal table's are {next(iter(aff_lang.values())).shape}")
-        affordance.lang_table = table
-    # render at the preset's sizes, so no resize is needed
-    env_hw = dict(static_hw=sizes["rgb_static"], gripper_hw=sizes["rgb_gripper"])
 
-    cohorts, shared_step = [], None
-    for c, size in enumerate(cohort_sizes(args.n_envs, args.cohorts)):
-        farm = EnvFarm([FakeCalvinEnv(render_obs=not args.device_render, **env_hw)
-                        for _ in range(size)])
-        # each cohort draws from its own generator, seeded from the config's seed
-        agent = Hulc2Agent(model, cfg["datamodule"], seed=cfg["seed"] + 1 + c, n_envs=size,
-                           fused_step=shared_step,
-                           device_render=env_hw if args.device_render else None, stats=stats)
-        shared_step = shared_step or agent._fused_step
-        cohorts.append((farm, agent))
-    # scored by the scene-obs oracle, the evaluator's default
-    ev = PipelinedEvaluator(cohorts, lang, ep_len=args.ep_len, affordance=affordance,
-                            aff_lang_embeddings=aff_lang, lang_variants=variants,
-                            aff_lang_variants=aff_variants)
-    ev.partial_path = log_dir / "partial_results.json"
-    results = ev.evaluate(sequences=sequences)
+    if not args.fake_env:
+        goals = real_env_goals(p, args, cfg, tower, affordance)
+        if affordance is not None:
+            affordance.lang_table = goals[4]
+        results, ev, extra = evaluate_real_env(args, cfg, model, stats, affordance, goals,
+                                               sequences, log_dir)
+    else:
+        # goals: BPE token ids of each task's canonical validation sentence,
+        # for the policy's and the detector's text towers alike; the
+        # paraphrase protocol swaps in the held-out sentences. A policy
+        # without a tower gets the dataset's embedding of the same sentence.
+        lang = dict(zip(TASK_NAMES, _tokens([VALIDATION_BANK[t] for t in TASK_NAMES])))
+        heldout = {t: _tokens(heldout_annotations(t)) for t in TASK_NAMES}
+        variants = heldout if args.paraphrase_eval else None
+        if not tower:
+            lang = embedding_goals(args.dataset_path, cfg["datamodule"]["lang_folder"])
+        aff_lang, aff_variants = lang, None
+        if affordance is not None:
+            if affordance.uses_tokens:
+                # the captions the detector can be asked by name: canonical and held out
+                aff_lang = dict(zip(TASK_NAMES,
+                                    _tokens([VALIDATION_BANK[t] for t in TASK_NAMES])))
+                table = {VALIDATION_BANK[t]: aff_lang[t] for t in TASK_NAMES}
+                for t in TASK_NAMES:
+                    table.update(zip(heldout_annotations(t), heldout[t]))
+                aff_variants = variants
+            else:
+                aff_lang, table = sentence_detector_goals(
+                    affordance.model.lang_embed_dim, args.aff_lang_embeddings, args.dataset_path,
+                    cfg["datamodule"]["lang_folder"])
+                if any(v.shape != (affordance.model.lang_embed_dim,) for v in aff_lang.values()):
+                    p.error(f"the detector takes {affordance.model.lang_embed_dim}-d sentence "
+                            f"embeddings; the goal table's are "
+                            f"{next(iter(aff_lang.values())).shape}")
+            affordance.lang_table = table
+        # render at the preset's sizes, so no resize is needed
+        sizes = camera_sizes(cfg["datamodule"]["transforms"])
+        env_hw = dict(static_hw=sizes["rgb_static"], gripper_hw=sizes["rgb_gripper"])
+        cohorts, shared_step = [], None
+        for c, size in enumerate(cohort_sizes(args.n_envs, args.cohorts)):
+            farm = EnvFarm([FakeCalvinEnv(render_obs=not args.device_render, **env_hw)
+                            for _ in range(size)])
+            # each cohort draws from its own generator, seeded from the config's seed
+            agent = Hulc2Agent(model, cfg["datamodule"], seed=cfg["seed"] + 1 + c, n_envs=size,
+                               fused_step=shared_step,
+                               device_render=env_hw if args.device_render else None, stats=stats)
+            shared_step = shared_step or agent._fused_step
+            cohorts.append((farm, agent))
+        ev = PipelinedEvaluator(cohorts, lang, ep_len=args.ep_len,
+                                oracle=make_oracle(real_env=False), affordance=affordance,
+                                aff_lang_embeddings=aff_lang, lang_variants=variants,
+                                aff_lang_variants=aff_variants)
+        ev.partial_path = log_dir / "partial_results.json"
+        results = ev.evaluate(sequences=sequences)
+        extra = {}
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     merged = harness.print_and_save({results_key: results}, log_dir, sequences=sequences)
-    diag = save_eval_diagnostics(ev, log_dir, args, sequences)
+    diag = save_eval_diagnostics(ev, log_dir, args, sequences, extra)
     if affordance is not None:
         logger.info("hierarchical mode: %d affordance predictions, %d approaches, "
                     "%d approach steps", ev.n_aff_predictions, ev.n_approaches,

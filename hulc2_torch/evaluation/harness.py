@@ -8,8 +8,9 @@ single-env rollouts, batched env farms, or the symbolic fake env in tests.
 The results.json schema (avg_seq_len, chain_sr 1..5, per-task success
 counts, best-epoch entry) matches the reference (evaluation.py:78-132).
 
-The port's copy of ``hulc2_tpu/evaluation/harness.py`` without the
-single-env rollout loop (every port evaluation runs the batched evaluator).
+The port's copy of ``hulc2_tpu/evaluation/harness.py``; its serial chain
+loop ``evaluate_policy`` drives one real env (``evaluate_policy --n-envs 1``
+without ``--fake-env``), every other evaluation runs the batched evaluator.
 Two faults of the original are repaired: ``print_and_save`` ranks "best" over
 every step in the merged results.json, not only the steps of the current
 call, so a sweep that evaluates one checkpoint per call still names the best
@@ -24,10 +25,11 @@ import json
 import logging
 from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 
+from hulc2_torch.evaluation.initial_states import get_env_state_for_initial_condition
 from hulc2_torch.evaluation.sequences import get_sequences
 
 logger = logging.getLogger(__name__)
@@ -91,6 +93,30 @@ def per_task_breakdown(results: Sequence[int], sequences) -> Dict[str, Dict[str,
         if n_done < len(chain):
             attempted[chain[n_done]] += 1
     return {t: {"success": ok[t], "total": attempted[t]} for t in attempted}
+
+
+def evaluate_policy(rollout_fn: Callable, env, num_sequences: int = NUM_SEQUENCES,
+                    sequences=None, progress: bool = True) -> List[int]:
+    """The benchmark, one chain after another: for each (initial_state,
+    chain), reset the env to the initial condition and attempt the subtasks
+    in order; a chain stops at its first failure. ``rollout_fn(env,
+    subtask) -> bool`` holds the policy and the oracle (reference:
+    evaluation.py:150-214)."""
+    sequences = sequences if sequences is not None else get_sequences(num_sequences)
+    results: List[int] = []
+    for i, (initial_state, chain) in enumerate(sequences):
+        robot_obs, scene_obs = get_env_state_for_initial_condition(initial_state)
+        env.reset(robot_obs=robot_obs, scene_obs=scene_obs)
+        done = 0
+        for subtask in chain:
+            if not rollout_fn(env, subtask):
+                break
+            done += 1
+        results.append(done)
+        if progress and (i + 1) % 50 == 0:
+            srs = " ".join(f"{j+1}/5:{v*100:.1f}%" for j, v in enumerate(count_success(results)))
+            logger.info("[%d/%d] %s", i + 1, len(sequences), srs)
+    return results
 
 
 def summarize(results: Sequence[int], sequences) -> Dict:
