@@ -226,7 +226,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    two instructions: each approach moves the TCP more than 5 cm before the
    policy steps, twice per policy step; then ``python -m
    hulc2_torch.affordance.test_move_to_pt`` exits 0;
-45. the kernels line, the card line, and the final JSON line.
+45. (am) the trainer's callbacks and sinks: ``python -m hulc2_torch.training``
+   at full flagship width from (e)'s dataset, two epochs of CB_STEPS steps
+   and CB_VAL val batches, with the JAX package's documented disk-run
+   rollouts (``docs/runs/r3_disk_run.md:15-19``: ``callbacks.rollout_lh`` of 4
+   chains with a video, ``callbacks.rollout`` of both modalities on the fake
+   env), ``callbacks.tsne_plot``, ``logger=tb`` and ``callbacks/checkpoint=lh_sr``
+   keeping the best one, counts reset just before and read just after:
+   ``eval_lh/*``, ``tasks/*`` and ``tasks_vis/*`` in metrics.jsonl, the kept
+   checkpoint the best by ``eval_lh/avg_seq_len``, shift_normalize launched
+   exactly 2 x train steps + 4 x (val steps + plan-sampler batches) + 2 x
+   (the rollouts' policy steps + visual goals); the video, the t-SNE figure
+   and the tensorboard events checked where their packages import, and the
+   packages that are missing printed; the callbacks' time per eval epoch
+   and env-steps/s;
+46. (an) data parallel on the one card: the kernel at the per-rank shapes
+   (1024 frames of 96x96 pad 4 and of 64x64 pad 3) bit for bit; two spawned
+   gloo ranks train the full-width flagship in fp32 (TF32 off) on local
+   batches of 16 + 16 windows, DP_STEPS Adam steps, then DP_STEPS SGD steps,
+   against one process on the global 32 + 32 with the same draws: every loss
+   term and the grad norm within rel 1e-3, the parameters after the SGD steps
+   within rel 1e-3 of their scale; the step's time for 2 ranks and 1 process
+   and the all-reduce's share; each rank's launches exactly 2 per step; then
+   ``torchrun --nproc_per_node 1 -m hulc2_torch.training`` over nccl, one
+   epoch of TORCHRUN_STEPS steps, twice per step by its own count;
+47. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -429,6 +453,24 @@ AFF_TABLE = BUILD / "chip_smoke_aff_table.npy"
 REAL_EP_LEN = 40
 SERIAL_CHAINS = 2
 RW_EP_LEN = 20
+# the trainer's callbacks and sinks (am) from (e)'s dataset, and data parallel
+# on the one card (an)
+CB_RUN = BUILD / "chip_smoke_callbacks"
+CB_STEPS, CB_VAL = 4, 1
+CB_CALLBACKS = [
+    'callbacks.rollout_lh={"env":"fake","num_sequences":4,"ep_len":4,"every_n_epochs":2,'
+    '"start_epoch":1,"video_dir":"auto","num_videos":1}',
+    'callbacks.rollout={"env":"fake","rollouts_per_task":1,"ep_len":8,"every_n_epochs":2,'
+    '"start_epoch":1}',
+    'callbacks.tsne_plot={"every_n_epochs":1}', "logger=tb", "callbacks/checkpoint=lh_sr",
+    "callbacks.checkpoint.save_top_k=1",
+]
+DIAGNOSTICS = {"video": ("cv2", "imageio"), "t-SNE": ("sklearn", "matplotlib"),
+               "tensorboard": ("tensorboard",)}
+DP_WORLD, DP_STEPS = 2, 3
+DP_SGD = ["model/optimizer=sgd", "model.optimizer.lr=0.05"]
+TORCHRUN_RUN = BUILD / "chip_smoke_torchrun"
+TORCHRUN_STEPS = 4
 BF16_PRESETS = {
     "cfg_low_level_rw": ("cfg_low_level_rw", []),
     "static_clip RN50": ("cfg_low_level", ["model/perceptual_encoder=static_clip",
@@ -2623,6 +2665,387 @@ def real_env_phases(dev: torch.device, card: str) -> tuple:
     return paths, rows
 
 
+def lacking_packages() -> dict:
+    """Diagnostic -> the packages it needs that do not import on this host."""
+    import importlib
+
+    lacking = {}
+    for diag, mods in DIAGNOSTICS.items():
+        lacking[diag] = []
+        for m in mods:
+            try:
+                importlib.import_module(m)
+            except Exception:  # noqa: BLE001 - absent or broken: the diagnostic is not driven
+                lacking[diag].append(m)
+    return lacking
+
+
+def phase_callbacks(dev: torch.device, card: str) -> dict:
+    """(am) ``python -m hulc2_torch.training`` with the rollout callbacks, the
+    t-SNE, the tensorboard sink and ``lh_sr`` retention, two epochs from
+    (e)'s dataset at full width; returns its launch counts and rates."""
+    from hulc2_torch import kernels, training
+    from hulc2_torch.core.checkpoint import CheckpointManager
+
+    lacking = lacking_packages()
+    driven = [d for d, miss in lacking.items() if not miss]
+    print(f"[callbacks] diagnostics driven: {driven or 'none'}; not driven: "
+          f"{ {d: miss for d, miss in lacking.items() if miss} or 'none'} (packages that do not "
+          f"import here)", flush=True)
+    from hulc2_torch.evaluation.sequences import get_sequences
+
+    # the long-horizon callback's chains, made (and cached) before the run so
+    # that the callbacks' time is the rollouts'
+    t0 = time.perf_counter()
+    get_sequences(4)
+    chains_s = time.perf_counter() - t0
+    shutil.rmtree(CB_RUN, ignore_errors=True)
+    argv = ["--run-dir", str(CB_RUN), "--device", "cuda", "--max-epochs", "2",
+            f"datamodule.root_data_dir={DATA_DIR}", f"trainer.limit_train_batches={CB_STEPS}",
+            f"trainer.limit_val_batches={CB_VAL}", "trainer.log_every_n_steps=1", *CB_CALLBACKS]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = training.main(argv)
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    names = [type(cb).__name__ for cb in result.callbacks]
+    if names != ["RolloutLongHorizonCallback", "RolloutCallback", "RolloutCallback",
+                 "TSNEPlotCallback"]:
+        fail(f"the callbacks built were {names}: the vision-goal rollouts need oracle windows "
+             f"in (e)'s validation split")
+    lh, lang, vis, tsne = result.callbacks
+    missing = {m for miss in lacking.values() for m in miss}
+    for err in result.callback_errors:
+        if not any(f"No module named '{m}'" in err for m in missing):
+            fail(f"a callback failed: {err}")
+    if result.step != 2 * CB_STEPS or len(result.history) != 2 * CB_STEPS:
+        fail(f"the callbacks run ended at step {result.step} with {len(result.history)} lines")
+    lines = [json.loads(x) for x in (CB_RUN / "metrics.jsonl").read_text().splitlines()]
+    for prefix in ("eval_lh/", "tasks/", "tasks_vis/"):
+        if not any(k.startswith(prefix) for line in lines for k in line):
+            fail(f"no {prefix}* metric in metrics.jsonl")
+    scored = {line["step"]: line["eval_lh/avg_seq_len"] for line in lines
+              if "eval_lh/avg_seq_len" in line}
+    best = max(scored, key=lambda k: (scored[k], k))
+    kept = CheckpointManager(CB_RUN).all_steps()
+    if kept != [best]:
+        fail(f"lh_sr with save_top_k 1 kept steps {kept}, the best by eval_lh/avg_seq_len is "
+             f"{best} ({scored})")
+    counts = {k: sum(cb.rollout_fn_factory.counts[k] for cb in (lh, lang, vis))
+              for k in ("policy_steps", "goals")}
+    plan_batches = 2  # one validation batch through the plan sampler per epoch
+    want = (2 * result.step + 4 * CB_VAL * 2 + 4 * plan_batches
+            + 2 * (counts["policy_steps"] + counts["goals"]))
+    if launches["shift_normalize"] != want:
+        fail(f"shift_normalize launched {launches['shift_normalize']} times, expected {want}: "
+             f"2 x {result.step} train steps + 4 x {2 * CB_VAL} val steps + 4 x {plan_batches} "
+             f"plan batches + 2 x ({counts['policy_steps']} policy steps + {counts['goals']} "
+             f"visual goals)")
+    checked = []
+    if not lacking["video"]:
+        if not lh.videos or not all(p.is_file() and p.stat().st_size > 0 for p in lh.videos):
+            fail("the long-horizon callback wrote no video")
+        checked.append(f"{len(lh.videos)} videos ({', '.join(p.name for p in lh.videos)})")
+    if not lacking["t-SNE"]:
+        if len(tsne.figures) != 2 or not all(p.is_file() for p in tsne.figures):
+            fail(f"the t-SNE callback wrote {tsne.figures}")
+        checked.append(f"t-SNE figures {[p.name for p in tsne.figures]}")
+    if not lacking["tensorboard"]:
+        events = list((CB_RUN / "tb").glob("events.out.tfevents.*"))
+        if not events or not any(b"eval_lh/avg_seq_len" in e.read_bytes() for e in events):
+            fail("the tensorboard sink wrote no events with the callbacks' scalars")
+        checked.append(f"tensorboard events {[e.name for e in events]}")
+    eval_epoch = result.callback_seconds[1]
+    rollout_s = sum(v for k, v in eval_epoch.items() if "Rollout" in k)
+    env_steps = counts["policy_steps"]
+    line = result.callback_history[-1]
+    print(f"[callbacks] 2 epochs x {CB_STEPS} steps + {CB_VAL} val batch: eval_lh/avg_seq_len "
+          f"{line['eval_lh/avg_seq_len']:.3f}, tasks/average_sr {line['tasks/average_sr']:.3f}, "
+          f"tasks_vis/average_sr {line['tasks_vis/average_sr']:.3f} "
+          f"({sum(k.startswith('tasks_vis/') for k in line) - 1} tasks with visual goals); kept "
+          f"checkpoint {kept}; checked: {'; '.join(checked) or 'none'}; callback errors "
+          f"{result.callback_errors}", flush=True)
+    print(f"[callbacks] eval epoch: callbacks {sum(eval_epoch.values()):.2f} s ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in eval_epoch.items())
+          + f"), {env_steps} rollout env steps and {counts['goals']} visual goals in "
+          f"{rollout_s:.2f} s of rollouts: {env_steps / rollout_s:.1f} env-steps/s; whole entry "
+          f"point {wall_s:.1f} s (the 4 chains made before it in {chains_s:.2f} s); launches "
+          f"{launches}; on {card}", flush=True)
+    return {"launches": launches, "callback_s": sum(eval_epoch.values()),
+            "rate": env_steps / rollout_s}
+
+
+def dp_batch(cfg: dict, dev: torch.device) -> dict:
+    """The global {"vis": ..., "lang": ...} batch of (an), made from a seed on
+    the host: the flagship's windows at its camera sizes, token ids, an aux
+    mask and task ids that differ between the ranks' rows."""
+    import numpy as np
+
+    from hulc2_torch.data.device_transforms import camera_sizes
+
+    rng = np.random.default_rng(7)
+    dm = cfg["datamodule"]
+    s, sizes = dm["max_window_size"], camera_sizes(dm["transforms"])
+
+    def window(b: int) -> dict:
+        actions = np.clip(rng.standard_normal((b, s, 7)) * 0.3, -1, 1).astype(np.float32)
+        actions[..., -1] = np.sign(actions[..., -1] + 1e-6)
+        return {cam: rng.integers(0, 256, (b, s, sizes[cam], sizes[cam], 3), dtype=np.uint8)
+                for cam in ("rgb_static", "rgb_gripper")} | {
+            "robot_obs_raw": rng.standard_normal((b, s, 15)).astype(np.float32),
+            "actions": actions}
+
+    b = 2 * dm["batch_size_lang"]
+    lang = window(b)
+    toks = np.zeros((b, 77), np.int64)
+    for i in range(b):
+        n = int(rng.integers(4, 16))
+        toks[i, 0], toks[i, n - 1] = 49406, 49407
+        toks[i, 1:n - 1] = rng.integers(1, 49000, n - 2)
+    lang["lang"] = toks
+    lang["use_for_aux_lang_loss"] = rng.random(b) < np.linspace(0.9, 0.3, b)
+    lang["lang_task_id"] = rng.integers(0, cfg["model"]["lang_task_classes"], b).astype(np.int32)
+    batch = {"vis": window(2 * dm["batch_size_vis"]), "lang": lang}
+    return {m: {k: torch.from_numpy(v).to(dev) for k, v in w.items()} for m, w in batch.items()}
+
+
+def dp_steps(cfg: dict, model, batches: dict, dev: torch.device, profile: bool = False) -> tuple:
+    """DP_STEPS train steps of ``model`` (the policy, or its DDP wrapper) on
+    ``batches``, each step's generator seeded from its index: (metrics per
+    step, the policy's parameters after, step times in ms, and with
+    ``profile`` the profiler's records of the collectives and DDP's reducer in
+    the last step, name -> CPU time in us)."""
+    from hulc2_torch.data.device_transforms import make_batch_transform
+    from hulc2_torch.parallel.mesh import unwrap
+    from hulc2_torch.train.optim import make_optimizer
+    from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
+
+    dm = cfg["datamodule"]
+    optimizer = make_optimizer(model.parameters(), cfg["model"]["optimizer"])
+    transform = make_batch_transform(dm["observation_space"], dm["proprioception_dims"],
+                                     dm["transforms"], dtype=torch.float32)
+    step = make_train_step(model, optimizer, transform, cfg["loss"]["clip_auxiliary_loss_beta"],
+                           aux_betas_from_loss_cfg(cfg["loss"]), device=dev)
+    generator = torch.Generator(device=dev)
+    history, times, share = [], [], None
+    for k in range(DP_STEPS):
+        generator.manual_seed(1000 + k)
+        torch.cuda.synchronize(dev)
+        last = profile and k == DP_STEPS - 1
+        prof = None
+        if last:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        metrics = step(batches, generator, cfg["loss"]["kl_beta"])
+        history.append({n: float(v) for n, v in metrics.items()})
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            # gloo's own all_reduce records carry no duration (its threads
+            # run the work); these are the step thread's
+            share = {e.key: e.cpu_time_total for e in prof.key_averages()
+                     if e.key.startswith(("c10d::", "gloo:", "nccl:", "torch.distributed",
+                                          "torch::distributed"))}
+    params = {n: p.detach().float().cpu() for n, p in unwrap(model).named_parameters()}
+    return history, params, times, share
+
+
+def dp_rank_run(dev: torch.device, rank: int, world: int, mesh) -> dict:
+    """One rank's (or, without a mesh, the one process's) Adam and SGD steps
+    on its rows of ``dp_batch``, with its launch counts."""
+    from hulc2_torch import kernels
+    from hulc2_torch.configs.flagship import flagship_config
+    from hulc2_torch.models.build import build_policy_for
+    from hulc2_torch.parallel.mesh import wrap_model
+    from hulc2_torch.utils.device import set_precision_flags
+
+    set_precision_flags()
+    fp32 = ['model.compute_dtype="float32"', "datamodule.batch_size_vis=16",
+            "datamodule.batch_size_lang=16"]
+    cfg, sgd = flagship_config(fp32), flagship_config(fp32 + DP_SGD)
+    batch = dp_batch(cfg, dev)
+    if world > 1:
+        batch = {m: {k: v[rank * v.shape[0] // world:(rank + 1) * v.shape[0] // world]
+                     for k, v in w.items()} for m, w in batch.items()}
+    kernels.reset_launch_counts()
+    adam = dp_steps(cfg, wrap_model(build_policy_for(cfg, seed=0).to(dev), mesh), batch, dev,
+                    profile=True)
+    plain = dp_steps(sgd, wrap_model(build_policy_for(sgd, seed=0).to(dev), mesh), batch, dev)
+    torch.cuda.synchronize(dev)
+    reduce_ms = None
+    if world > 1:  # one all-reduce of all the gradients' values, as DDP's buckets hold them
+        import torch.distributed as dist
+
+        flat = torch.ones(sum(p.numel() for p in plain[1].values()), device=dev)
+        times = []
+        for _ in range(4):
+            dist.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            torch.cuda.synchronize(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+        reduce_ms = statistics.median(times[1:])
+    return {"adam": adam[0], "adam_ms": adam[2], "ddp_records": adam[3], "sgd": plain[0],
+            "reduce_ms": reduce_ms, "numel": sum(p.numel() for p in plain[1].values()),
+            "params": plain[1], "launches": dict(kernels.LAUNCHES),
+            "rows": batch["vis"]["actions"].shape[0] + batch["lang"]["actions"].shape[0]}
+
+
+def _dp_worker(rank: int, world: int, port: int, out_dir: str) -> None:
+    import torch.distributed as dist
+
+    from hulc2_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # two ranks on one card: NCCL refuses them, gloo moves CUDA tensors for
+    # the all-reduce and broadcast that DDP and the step's gathers use
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(dp_rank_run(dev, rank, world, make_mesh()), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_kernel_dp(dev: torch.device) -> dict:
+    """(an) The kernel at one rank's shapes (16 + 16 windows of 32 frames),
+    bit for bit against its plain version, and its device time per rank step."""
+    from hulc2_torch.ops import preprocess
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for seed, (cam, (n, hw, pad)) in enumerate(bench.SHAPES.items()):
+        n //= DP_WORLD
+        sets = bench.make_sets(n, hw, pad, bench.SETS, dev, 60 + seed)
+        imgs, offsets = sets[0]
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = preprocess.random_shift_normalize(imgs, offsets, pad, [0.5], [0.5], out_dtype)
+            want = preprocess.shift_normalize_plain(imgs, offsets, pad, [0.5], [0.5], out_dtype)
+            torch.cuda.synchronize(dev)
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"[data_parallel] shift_normalize {cam} {n}x{hw}x{hw}x3 pad {pad} {out_dtype}: "
+                  f"max_abs_err {err:.3g} (tol 0)", flush=True)
+            if err > 0 or got.shape != want.shape or not torch.isfinite(got.float()).all():
+                fail(f"shift_normalize disagrees with its plain version at the per-rank {cam} "
+                     f"shape, {out_dtype}")
+            totals["max_abs_err"] = max(totals["max_abs_err"], err)
+        totals["ms"] += bench.device_ms(bench.rotating(bench.kernel_fn(pad), sets))
+        totals["plain_ms"] += bench.device_ms(bench.rotating(bench.plain_fn(pad), sets))
+        bound_ms, totals["bound_by"] = bench.bound(n, hw, 2)
+        totals["bound_ms"] += bound_ms
+        del sets, imgs, offsets, got, want
+    print(f"[data_parallel] per rank step (both cameras, bf16): kernel {totals['ms']:.4f} ms, "
+          f"bound {totals['bound_ms']:.4f} ms ({100 * totals['bound_ms'] / totals['ms']:.1f}%), "
+          f"plain {totals['plain_ms']:.4f} ms", flush=True)
+    return totals
+
+
+def phase_data_parallel(dev: torch.device, card: str) -> tuple:
+    """(an) Two gloo ranks on the card against one process on the global
+    batch, then ``torchrun --nproc_per_node 1`` over nccl; returns the paths'
+    launch counts and the kernel's row at the per-rank shapes."""
+    import torch.multiprocessing as mp
+
+    kernel = phase_kernel_dp(dev)
+    out_dir = BUILD / "chip_smoke_dp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_dp_worker, args=(DP_WORLD, free_port(), str(out_dir)), nprocs=DP_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    ref = dp_rank_run(dev, 0, 1, None)
+    worst = {}
+    for k in range(DP_STEPS):
+        for tag in ("adam", "sgd"):
+            got, want = ranks[0][tag][k], ref[tag][k]
+            if set(got) != set(want) or ranks[1][tag][k] != got:
+                fail(f"the ranks' {tag} step {k} metrics differ from each other or in keys")
+            for name, w in want.items():
+                rel = abs(got[name] - w) / max(abs(w), 1e-6)
+                worst[name] = max(worst.get(name, 0.0), rel)
+    bad = {k: v for k, v in worst.items() if v > 1e-3}
+    # the parameters' scale is the model's largest magnitude: a tensor whose
+    # true gradient is zero (an attention key's bias, zero at init) holds only
+    # rounding noise after the steps, which has no scale of its own
+    scale = max(w.abs().max().item() for w in ref["params"].values())
+    errs = {n: (ranks[0]["params"][n] - w).abs().max().item() for n, w in ref["params"].items()}
+    worst_param = max(errs, key=errs.get)
+    param_rel = errs[worst_param] / scale
+    for r in ranks:
+        if r["launches"]["shift_normalize"] != 2 * 2 * DP_STEPS or r["rows"] != 32:
+            fail(f"a rank launched shift_normalize {r['launches']} times on {r['rows']} rows, "
+                 f"expected {4 * DP_STEPS} on 16 + 16")
+    rank_ms = statistics.median(t for r in ranks for t in r["adam_ms"][1:])
+    records = ranks[0]["ddp_records"]
+    reduce_ms = max(r["reduce_ms"] for r in ranks)
+    one_ms = statistics.median(ref["adam_ms"][1:])
+    print(f"[data_parallel] 2 gloo ranks x 16 + 16 windows against 1 process x 32 + 32, full "
+          f"width fp32, TF32 off, {DP_STEPS} Adam + {DP_STEPS} SGD steps: worst rel error over "
+          f"{len(worst)} metrics {max(worst.values()):.3g} (grad_norm {worst['grad_norm']:.3g}, "
+          f"loss {worst['loss']:.3g}, lang_clip_loss {worst['lang_clip_loss']:.3g}); "
+          f"parameters after the SGD steps within rel {param_rel:.3g} of their scale {scale:.3g} "
+          f"(tol 1e-3; worst {worst_param}, {errs[worst_param]:.3g})", flush=True)
+    if bad:
+        fail(f"2 ranks differ from one process by more than rel 1e-3: {bad}")
+    if param_rel > 1e-3:
+        fail(f"the parameters after {DP_STEPS} SGD steps differ by rel {param_rel:.3g} of their scale")
+    print(f"[data_parallel] step time (median of Adam steps 2-{DP_STEPS}, host clock ending in a "
+          f"sync): 2 ranks {rank_ms:.2f} ms, 1 process {one_ms:.2f} ms; one gloo all-reduce of "
+          f"the {ranks[0]['numel'] / 1e6:.2f}M fp32 gradient values between the ranks "
+          f"{reduce_ms:.2f} ms ({100 * reduce_ms / rank_ms:.1f}% of a rank's step; median of 3 "
+          f"after one); the profiler's records of the collectives and DDP's reducer on rank 0's "
+          f"step thread {sum(records.values()) / 1e3:.2f} ms "
+          f"({ {k: round(v / 1e3, 2) for k, v in records.items()} } ms; gloo's own records carry "
+          f"no duration); spawn to join {spawn_s:.1f} s; on {card}", flush=True)
+    # torchrun over nccl: one process, the group and the DDP wrapper as on more cards
+    shutil.rmtree(TORCHRUN_RUN, ignore_errors=True)
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    argv = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+            "--master_port", str(free_port()), "-m", "hulc2_torch.training",
+            "--run-dir", str(TORCHRUN_RUN), "--max-epochs", "1",
+            f"datamodule.root_data_dir={DATA_DIR}", f"trainer.limit_train_batches={TORCHRUN_STEPS}",
+            "trainer.limit_val_batches=1", "trainer.log_every_n_steps=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=600)
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "process group: rank 0 of 1 (nccl)" not in proc.stderr:
+        fail(f"torchrun training exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in (TORCHRUN_RUN / "metrics.jsonl").read_text().splitlines()]
+    perf = [x for x in lines if "perf/kernel_launches_shift_normalize" in x]
+    train = [x for x in lines if "train/loss" in x]
+    torchrun_launches = int(perf[0]["perf/kernel_launches_shift_normalize"]) if perf else -1
+    if (len(train) != TORCHRUN_STEPS or torchrun_launches != 2 * TORCHRUN_STEPS
+            or not (TORCHRUN_RUN / "saved_models" / f"{TORCHRUN_STEPS}.pt").is_file()
+            or not all(math.isfinite(x["train/loss"]) for x in train)):
+        fail(f"torchrun training logged {len(train)} steps, {torchrun_launches} launches")
+    print(f"[data_parallel] torchrun --nproc_per_node 1 over nccl: {TORCHRUN_STEPS} steps, losses "
+          + ", ".join(f"{x['train/loss']:.4f}" for x in train)
+          + f", {torchrun_launches} shift_normalize launches by its own count, checkpoint written;"
+          f" {torchrun_s:.1f} s; on {card}", flush=True)
+    paths = {"dp_train": {"launches": {"shift_normalize": sum(
+                 r["launches"]["shift_normalize"] for r in ranks)}},
+             "torchrun_train": {"launches": {"shift_normalize": torchrun_launches}}}
+    return paths, kernel, {"rank_ms": rank_ms, "one_ms": one_ms, "reduce_ms": reduce_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2716,6 +3139,9 @@ def main() -> int:
     option_paths["aff_low_eval"] = affordance_phases(dev, card)
     real_paths, real_kernel = real_env_phases(dev, card)
     option_paths.update(real_paths)
+    option_paths["callbacks_train"] = phase_callbacks(dev, card)
+    dp_paths, dp_kernel, _ = phase_data_parallel(dev, card)
+    option_paths.update(dp_paths)
 
     entry = {
         "name": "shift_normalize",
@@ -2730,7 +3156,8 @@ def main() -> int:
         "max_abs_err": max(kernel["max_abs_err"], pad0["max_abs_err"], val_err,
                            low_kernel["max_abs_err"], real_kernel["dispatch"]["max_abs_err"],
                            *(r["max_abs_err"] for r in preset_kernel.values()),
-                           *(r["max_abs_err"] for r in rw_kernel.values())),
+                           *(r["max_abs_err"] for r in rw_kernel.values()),
+                           dp_kernel["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -2755,6 +3182,8 @@ def main() -> int:
         "preset_static_launch": preset_kernel,
         "real_world_r3m_launch": rw_kernel,
         "real_env": real_kernel,
+        "dp_rank_step": {k: dp_kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "max_abs_err")},
     }
     print(f"[kernels] ms, plain_ms and bound_ms are device times per train step, one rgb_static "
           f"and one rgb_gripper launch (a bf16 cast of the same bytes takes "
@@ -2763,7 +3192,8 @@ def main() -> int:
           f"preset_static_launch per static-camera launch of the real_world, real_world_square "
           f"and clip presets, real_world_r3m_launch per launch of cfg_low_level_rw's train "
           f"step (static and gripper), real_env per batched dispatch (4 frames of 200 px and of "
-          f"84 px) and per serial step (1 of each) at pad 0",
+          f"84 px) and per serial step (1 of each) at pad 0, dp_rank_step per data-parallel "
+          f"rank's train step (1024 frames of 96 px pad 4 and of 64 px pad 3)",
           flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)

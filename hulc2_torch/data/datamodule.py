@@ -23,7 +23,11 @@ datasets only, and its training batches come from the per-modality
 it, as JAX's does). ``datamodule.loader_isolation=process`` assembles the
 host path's training batches in a subprocess (``data/process_loader.py``),
 as JAX routes it (``hulc2_tpu/data/datamodule.py:138-154``): before the
-device store, which it overrides, and refused with one modality.
+device store, which it overrides, and refused with one modality. In a
+data-parallel run (``process_index`` of ``process_count``) every loader of
+both splits takes this process's stride of its epoch's order
+(``loader.process_shard``), and an epoch is ``process_count`` times
+shorter.
 """
 from __future__ import annotations
 
@@ -46,8 +50,11 @@ MODALITIES = ("vis", "lang")
 
 
 class Hulc2DataModule:
-    def __init__(self, dm_cfg: dict, seed: int = 42, device=None, use_shm_cache: bool = False):
+    def __init__(self, dm_cfg: dict, seed: int = 42, device=None, use_shm_cache: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         self.cfg = dm_cfg
+        self.process_index = process_index
+        self.process_count = process_count
         self.seed = seed
         self.device = resolve_device(device)
         self.root = Path(dm_cfg["root_data_dir"])
@@ -128,7 +135,7 @@ class Hulc2DataModule:
             (m,) = self.modalities
             self._train_loader = ModalityLoader(m, BatchLoader(
                 self.datasets[f"{m}_training"], self._batch_size(m), shuffle=True, seed=self.seed,
-                num_threads=self.cfg.get("num_workers", 4)))
+                num_threads=self.cfg.get("num_workers", 4), **self._shard))
             return self._train_loader
         vis, lang = self.datasets["vis_training"], self.datasets["lang_training"]
         if self.isolation == "process":
@@ -138,13 +145,13 @@ class Hulc2DataModule:
                 self.cfg, vis, lang, self._batch_size("vis"), self._batch_size("lang"),
                 seed=self.seed, use_shm_cache=self.use_shm_cache,
                 num_threads=self.cfg.get("num_workers", 4),
-                pin_memory=self.device.type == "cuda")
+                pin_memory=self.device.type == "cuda", **self._shard)
             return self._train_loader
         if not self.cfg.get("device_store", False):
             self._train_loader = FusedBatchLoader(
                 vis, lang, self._batch_size("vis"), self._batch_size("lang"), seed=self.seed,
                 num_threads=self.cfg.get("num_workers", 4),
-                pin_memory=self.device.type == "cuda")
+                pin_memory=self.device.type == "cuda", **self._shard)
             return self._train_loader
         obs = self.cfg["observation_space"]
         ram = self._stores["training"]
@@ -155,7 +162,7 @@ class Hulc2DataModule:
         ram.drop_arrays(self.device_store.image_keys)
         self._train_loader = DeviceGatherFusedLoader(
             vis, lang, self.device_store, self._batch_size("vis"), self._batch_size("lang"),
-            seed=self.seed)
+            seed=self.seed, **self._shard)
         return self._train_loader
 
     def close(self) -> None:
@@ -173,14 +180,18 @@ class Hulc2DataModule:
         the configured modalities), in index order unless ``shuffle_val``."""
         loaders = [BatchLoader(self.datasets[f"{m}_validation"], self._batch_size(m),
                                shuffle=self.cfg.get("shuffle_val", False), seed=self.seed,
-                               num_threads=self.cfg.get("num_workers", 4))
+                               num_threads=self.cfg.get("num_workers", 4), **self._shard)
                    for m in self.modalities]
         return zip_modalities(self.modalities, *loaders)
 
+    @property
+    def _shard(self) -> dict:
+        return {"process_index": self.process_index, "process_count": self.process_count}
+
     def steps_per_epoch(self) -> int:
-        return min(len(self.datasets[f"{m}_training"]) // self._batch_size(m)
+        return min(len(self.datasets[f"{m}_training"]) // self.process_count // self._batch_size(m)
                    for m in self.modalities)
 
     def val_batches(self) -> int:
-        return min(len(self.datasets[f"{m}_validation"]) // self._batch_size(m)
-                   for m in self.modalities)
+        return min(len(self.datasets[f"{m}_validation"]) // self.process_count
+                   // self._batch_size(m) for m in self.modalities)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from hulc2_torch.data.frame_store import RamFrameStore
+from hulc2_torch.data.loader import fused_orders
 from hulc2_torch.data.window_dataset import WindowDataset
 
 logger = logging.getLogger(__name__)
@@ -70,11 +71,13 @@ class DeviceGatherFusedLoader:
     Each batch holds the image keys as device tensors (B, S, H, W, C) and the
     small keys as host numpy arrays: ``robot_obs_raw``, ``actions`` and
     [``scene_obs``] for all rows, ``lang``, ``use_for_aux_lang_loss`` and ``lang_task_id`` for
-    the lang rows. ``DevicePrefetcher`` copies the small keys up."""
+    the lang rows. ``DevicePrefetcher`` copies the small keys up. In a
+    data-parallel run each process takes its ``process_shard`` of both orders
+    (``hulc2_tpu/data/device_store.py:121-134``)."""
 
     def __init__(self, vis_dataset: WindowDataset, lang_dataset: WindowDataset,
                  dev_store: DeviceFrameStore, batch_size_vis: int, batch_size_lang: int,
-                 seed: int = 0):
+                 seed: int = 0, process_index: int = 0, process_count: int = 1):
         if vis_dataset.frame_skip is not None or lang_dataset.frame_skip is not None:
             raise NotImplementedError("the device-store gather does not support frame_skip")
         if vis_dataset.padded_size != lang_dataset.padded_size:
@@ -85,15 +88,18 @@ class DeviceGatherFusedLoader:
         self.bv = batch_size_vis
         self.bl = batch_size_lang
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self.S = vis_dataset.padded_size
 
     def __len__(self) -> int:
-        return min(len(self.vis) // self.bv, len(self.lang) // self.bl)
+        return min(len(self.vis) // self.process_count // self.bv,
+                   len(self.lang) // self.process_count // self.bl)
 
     def _orders(self, epoch: int):
-        return (np.random.default_rng((self.seed, epoch, 0)).permutation(len(self.vis)),
-                np.random.default_rng((self.seed, epoch, 1)).permutation(len(self.lang)))
+        return fused_orders(self.seed, epoch, len(self.vis), len(self.lang), self.process_index,
+                            self.process_count)
 
     def _plan_rows(self, ds: WindowDataset, idxs, epoch: int, rows: np.ndarray, row0: int,
                    out: Dict[str, np.ndarray]) -> None:
@@ -176,8 +182,7 @@ def host_fused_batches(vis: WindowDataset, lang: WindowDataset, batch_size_vis: 
     for k in lang_only:
         shape, dtype = lang_specs[k]
         specs[k] = ((bl, *shape[1:]), dtype)
-    ov = np.random.default_rng((seed, epoch + 1, 0)).permutation(len(vis))
-    ol = np.random.default_rng((seed, epoch + 1, 1)).permutation(len(lang))
+    ov, ol = fused_orders(seed, epoch + 1, len(vis), len(lang))
     for b in range(min(len(vis) // bv, len(lang) // bl)):
         out = {k: np.empty(shape, dtype) for k, (shape, dtype) in specs.items()}
         # lang rows follow the vis rows in the shared keys

@@ -49,6 +49,7 @@ import torch
 
 from hulc2_torch.data.statistics import DatasetStatistics
 from hulc2_torch.ops import preprocess
+from hulc2_torch.parallel.batch_shard import draw_rows
 
 # the keys of a language window that the model reads as they are
 LANG_KEYS = ("lang", "use_for_aux_lang_loss", "lang_task_id")
@@ -342,8 +343,8 @@ def depth_sizes(transforms_name: str = "rand_shift_96") -> Dict[str, int]:
 
 def draw_offsets(n: int, pad: int, generator: torch.Generator, device) -> torch.Tensor:
     """(n, 2) int32 crop offsets, uniform in [0, 2 pad]^2."""
-    return torch.randint(0, 2 * pad + 1, (n, 2), generator=generator, device=device,
-                         dtype=torch.int32)
+    return draw_rows(lambda s: torch.randint(0, 2 * pad + 1, s, generator=generator,
+                                             device=device, dtype=torch.int32), (n, 2), device)
 
 
 def draw_gamma(shape: float, generator: torch.Generator, device, tries: int = 8) -> torch.Tensor:
@@ -379,11 +380,12 @@ def op_draws(pipeline: list, shape: tuple, generator: Optional[torch.Generator],
                 out[i] = draw_offsets(n, op["pad"], generator, device)
             elif kind == "random_crop":
                 out[i] = torch.stack([
-                    torch.randint(0, h - op["size"] + 1, (n,), generator=generator, device=device),
-                    torch.randint(0, w - op["size"] + 1, (n,), generator=generator, device=device)],
-                    dim=-1).int()
+                    draw_rows(lambda s, hi=hi: torch.randint(0, hi, s, generator=generator,
+                                                             device=device), (n,), device)
+                    for hi in (h - op["size"] + 1, w - op["size"] + 1)], dim=-1).int()
             elif kind == "gaussian_noise":
-                out[i] = torch.randn((n, h, w, c), generator=generator, device=device)
+                out[i] = draw_rows(lambda s: torch.randn(s, generator=generator, device=device),
+                                   (n, h, w, c), device)
             elif kind == "depth_noise":
                 out[i] = draw_gamma(op.get("shape", 1000.0), generator, device) \
                     / op.get("rate", 1000.0)

@@ -37,26 +37,49 @@ def collate(samples) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+def process_shard(order: np.ndarray, process_index: int, process_count: int) -> np.ndarray:
+    """This process's share of an epoch's order: every ``process_count``-th
+    index from ``process_index`` (``hulc2_tpu/data/loader.py:55-62``), disjoint
+    across the processes of a data-parallel run."""
+    return order[process_index::process_count]
+
+
+def fused_orders(seed: int, epoch: int, n_vis: int, n_lang: int, process_index: int = 0,
+                 process_count: int = 1) -> tuple:
+    """The vis and lang orders of a fused loader's epoch, from
+    ``default_rng((seed, epoch, 0|1))``, each this process's shard."""
+    return tuple(process_shard(np.random.default_rng((seed, epoch, m)).permutation(n),
+                               process_index, process_count)
+                 for m, n in enumerate((n_vis, n_lang)))
+
+
 class BatchLoader:
     """Epoch-based batch iterator over a WindowDataset, shuffled or in index
-    order; the last partial batch is dropped."""
+    order; the last partial batch is dropped. In a data-parallel run each
+    process takes its ``process_shard`` of the epoch's order, and every
+    process the same number of batches, ``len(dataset) // process_count //
+    batch_size``."""
 
     def __init__(self, dataset: WindowDataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, num_threads: int = 4):
+                 seed: int = 0, num_threads: int = 4, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_threads = num_threads
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // self.process_count // self.batch_size
 
     def _epoch_order(self) -> np.ndarray:
         n = len(self.dataset)
         rng = np.random.default_rng((self.seed, self.epoch))
-        return rng.permutation(n) if self.shuffle else np.arange(n)
+        order = rng.permutation(n) if self.shuffle else np.arange(n)
+        return process_shard(order, self.process_index, self.process_count)
 
     def _make(self, idxs) -> Dict[str, np.ndarray]:
         return collate([self.dataset[int(i)] for i in idxs])
@@ -191,14 +214,16 @@ class FusedBatchLoader:
     two batches meanwhile. Without ``pin_memory`` batches are dicts of numpy
     arrays; with it, ``PinnedBatch`` dicts of pinned tensors from a ring of
     ``RING_SLOTS`` slots, which ``DevicePrefetcher`` copies to the card and
-    releases."""
+    releases. In a data-parallel run each process takes its
+    ``process_shard`` of both orders (``hulc2_tpu/data/loader.py:157-167``)."""
 
     LOOKAHEAD = 2
     RING_SLOTS = LOOKAHEAD + 1  # the batches assembled ahead and the one being copied
 
     def __init__(self, vis_dataset: WindowDataset, lang_dataset: WindowDataset,
                  batch_size_vis: int, batch_size_lang: int, seed: int = 0,
-                 num_threads: int = 4, pin_memory: bool = False):
+                 num_threads: int = 4, pin_memory: bool = False, process_index: int = 0,
+                 process_count: int = 1):
         self.vis = vis_dataset
         self.lang = lang_dataset
         self.bv = batch_size_vis
@@ -207,6 +232,8 @@ class FusedBatchLoader:
         # the copies are CPU-bound: threads beyond the core count only contend
         self.num_threads = max(1, min(num_threads, os.cpu_count() or num_threads))
         self.pin_memory = pin_memory
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         vis_specs = vis_dataset.out_specs(batch_size_vis + batch_size_lang)
         lang_specs = lang_dataset.out_specs(batch_size_vis + batch_size_lang)
@@ -217,11 +244,12 @@ class FusedBatchLoader:
             self.specs[k] = ((batch_size_lang, *shape[1:]), dtype)
 
     def __len__(self) -> int:
-        return min(len(self.vis) // self.bv, len(self.lang) // self.bl)
+        return min(len(self.vis) // self.process_count // self.bv,
+                   len(self.lang) // self.process_count // self.bl)
 
     def _orders(self, epoch: int):
-        return (np.random.default_rng((self.seed, epoch, 0)).permutation(len(self.vis)),
-                np.random.default_rng((self.seed, epoch, 1)).permutation(len(self.lang)))
+        return fused_orders(self.seed, epoch, len(self.vis), len(self.lang), self.process_index,
+                            self.process_count)
 
     def _fill(self, pool, out: Dict[str, np.ndarray], vis_idxs, lang_idxs, epoch: int) -> None:
         # the lang rows follow the vis rows in the shared keys; the lang-only

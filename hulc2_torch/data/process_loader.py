@@ -116,6 +116,8 @@ def _child_main(spec: dict, free, ready, stop) -> None:
         loader = _ChildLoader(dm.datasets["vis_training"], dm.datasets["lang_training"],
                               spec["bv"], spec["bl"], seed=spec["seed"],
                               num_threads=spec["num_threads"],
+                              process_index=spec["process_index"],
+                              process_count=spec["process_count"],
                               shared=_SharedSlots(slots, free, stop))
         loader.epoch = spec["start_epoch"]
         while not stop.is_set():
@@ -142,8 +144,10 @@ class ProcessFusedLoader:
 
     def __init__(self, dm_cfg: dict, vis_dataset, lang_dataset, batch_size_vis: int,
                  batch_size_lang: int, seed: int = 0, use_shm_cache: bool = False,
-                 num_threads: int = 4, pin_memory: bool = False):
-        shape_of = FusedBatchLoader(vis_dataset, lang_dataset, batch_size_vis, batch_size_lang)
+                 num_threads: int = 4, pin_memory: bool = False, process_index: int = 0,
+                 process_count: int = 1):
+        shape_of = FusedBatchLoader(vis_dataset, lang_dataset, batch_size_vis, batch_size_lang,
+                                    process_index=process_index, process_count=process_count)
         self.specs, self._len = shape_of.specs, len(shape_of)
         self.pin_memory, self.num_threads = pin_memory, num_threads
         self.epoch = 0
@@ -153,7 +157,8 @@ class ProcessFusedLoader:
             "dm_cfg": {**dm_cfg, "device_store": False}, "seed": seed,
             "use_shm_cache": use_shm_cache, "bv": batch_size_vis, "bl": batch_size_lang,
             "tag": self.tag, "specs": self.specs,
-            "num_threads": num_threads,
+            "num_threads": num_threads, "process_index": process_index,
+            "process_count": process_count,
         }
         self._proc = None
         self._slots: List[Dict[str, np.ndarray]] = []

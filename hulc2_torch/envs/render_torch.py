@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from hulc2_torch.envs import scene_layout as L
 from hulc2_torch.envs.render import _LIGHT, _ray_grid
 from hulc2_torch.evaluation.tasks import COLORS
+from hulc2_torch.utils.device import resolve_device
 
 # box list (the order of render.scene_boxes): 0 table, 1 shelf, 2 wall,
 # 3 button base, 4 led, 5 lever track, 6 bulb, 7 door, 8 door handle, 9 drawer
@@ -205,14 +206,16 @@ def raycast(dirs: torch.Tensor, t0: torch.Tensor, centers: torch.Tensor, halves:
 
 
 def make_render_obs_fn(static_hw: int, gripper_hw: int, with_depth: bool = True,
-                       device="cpu") -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
-    """fn(scene_obs (K, 24), robot_obs (K, 15) float32 on ``device``) ->
+                       device=None) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
+    """fn(scene_obs (K, 24), robot_obs (K, 15) float32 on ``device``, the
+    card unless ``"cpu"`` is asked for) ->
     {"rgb_static": (K, H, W, 3) uint8, "rgb_gripper": (K, h, w, 3) uint8
     [, "depth_static": (K, H, W) float32]}, with the cameras of
     ``FakeCalvinEnv`` at these sizes. The gripper view leaves out the wrist
     box, as the host path does."""
     from hulc2_torch.envs.fake_env import FakeCalvinEnv
 
+    device = resolve_device(device)
     env = FakeCalvinEnv(static_hw=static_hw, gripper_hw=gripper_hw)
     static_dirs, static_t0 = camera_dirs(env.cameras[0])
     grip_dirs, _ = camera_dirs(env._gripper_camera())  # its origin follows the TCP

@@ -18,6 +18,7 @@ from hulc2_torch.core.checkpoint import CheckpointManager, load_run_config
 from hulc2_torch.data.statistics import RUN_STATISTICS, DatasetStatistics, load_run_statistics
 from hulc2_torch.models.build import build_policy_for
 from hulc2_torch.models.hulc2 import Hulc2
+from hulc2_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -52,13 +53,12 @@ def run_statistics(run_dir, cfg: dict) -> Optional[DatasetStatistics]:
     return stats
 
 
-def load_affordance(run_dir, step: Optional[int] = None, device="cpu", seed: int = 0,
+def load_affordance(run_dir, step: Optional[int] = None, device=None, seed: int = 0,
                     lang_table=None):
-    """``AffordancePredictor`` on ``device`` from an affordance run dir: the
-    detector built from its config, the checkpoint's parameters and BatchNorm
-    statistics, and the labels' ``depth_norm``."""
-    import torch
-
+    """``AffordancePredictor`` on ``device`` (the card unless ``"cpu"`` is
+    asked for) from an affordance run dir: the detector built from its
+    config, the checkpoint's parameters and BatchNorm statistics, and the
+    labels' ``depth_norm``."""
     from hulc2_torch.affordance.depth_heads import DepthNorm
     from hulc2_torch.affordance.detector import AffordancePredictor
     from hulc2_torch.affordance.train_affordance import build_detector, input_hw
@@ -72,7 +72,7 @@ def load_affordance(run_dir, step: Optional[int] = None, device="cpu", seed: int
     model.load_state_dict(restored["model"])
     logger.info("loaded affordance step %d from %s", restored["step"], run_dir)
     hw = input_hw(cfg["aff_detection"])
-    return AffordancePredictor(model.to(torch.device(device)), DepthNorm(**cfg["depth_norm"]),
+    return AffordancePredictor(model.to(resolve_device(device)), DepthNorm(**cfg["depth_norm"]),
                                (hw, hw), seed=seed, lang_table=lang_table)
 
 

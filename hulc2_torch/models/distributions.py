@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from hulc2_torch.parallel.batch_shard import draw_rows
+
 
 def _need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     if generator is None:
@@ -48,7 +50,7 @@ class DiscretePlanDistribution:
 
     def gumbel(self, shape, generator: torch.Generator, device) -> torch.Tensor:
         """Standard Gumbel noise of ``shape`` (..., categories, classes)."""
-        u = torch.rand(shape, generator=generator, device=device)
+        u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape, device)
         u = u.clamp(min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
@@ -107,8 +109,9 @@ class ContinuousPlanDistribution:
         ``sample`` and ``rsample`` are one function as in the JAX package."""
         mean, std = self.mean_std(state)
         if normal is None:
-            normal = torch.randn(mean.shape, generator=_need_generator(generator),
-                                 device=mean.device, dtype=mean.dtype)
+            g = _need_generator(generator)
+            normal = draw_rows(lambda s: torch.randn(s, generator=g, device=mean.device,
+                                                     dtype=mean.dtype), mean.shape, mean.device)
         return mean + std * normal.reshape(mean.shape).to(mean.dtype)
 
     rsample = sample

@@ -40,6 +40,7 @@ from hulc2_torch.models.perceptual import ConcatEncoders
 from hulc2_torch.models.plan_nets import PlanProposalNetwork
 from hulc2_torch.ops.gripper_frame import world_to_tcp_frame
 from hulc2_torch.ops.logistic import logistic_mixture_log_prob
+from hulc2_torch.parallel.batch_shard import gather_rows, masked_mean, roll_rows
 
 
 class PolicyCarry(NamedTuple):
@@ -191,7 +192,9 @@ class Hulc2(nn.Module):
         """The GCBC aux heads' losses (``hulc2.py:200-215``): the proprio state
         from the embedding (MSE), and, with lang rows, the language embedding
         from their sequence features (1 - cosine, over the aux mask) and the
-        MIA discriminator's BCE with ``roll(lang_emb, 1)`` as the negatives."""
+        MIA discriminator's BCE with ``roll(lang_emb, 1)`` as the negatives.
+        In a data-parallel step the masked means divide by the global count
+        and the roll runs over the global batch (``parallel/batch_shard.py``)."""
         out: Dict[str, torch.Tensor] = {}
         with torch.autocast(device_type=emb.device.type, enabled=False):
             if self.state_decoder is not None:
@@ -200,17 +203,16 @@ class Hulc2(nn.Module):
             if lang_emb is None:
                 return out
             mask = aux_mask.float()
-            denom = mask.sum().clamp(min=1.0)
             if self.bcz_lang_decoder is not None:
                 pred = self.bcz_lang_decoder(lang_seq_feat.float())
                 cos = (l2_normalize(pred, 1e-8) * l2_normalize(lang_emb.float(), 1e-8)).sum(-1)
-                out["lang_pred_loss"] = ((1.0 - cos) * mask).sum() / denom
+                out["lang_pred_loss"] = masked_mean(1.0 - cos, mask)
             if self.mia_discriminator is not None:
                 vis, lang = lang_seq_feat.float(), lang_emb.float()
                 pos = self.mia_discriminator(vis, lang)[..., 0]
-                neg = self.mia_discriminator(vis, torch.roll(lang, 1, dims=0))[..., 0]
+                neg = self.mia_discriminator(vis, roll_rows(lang, 1))[..., 0]
                 bce = F.softplus(-pos) + F.softplus(neg)
-                out["lang_contrastive_loss"] = (bce * mask).sum() / denom
+                out["lang_contrastive_loss"] = masked_mean(bce, mask)
         return out
 
     def val_forward(self, batch: Dict[str, Dict], kl_beta: float,
@@ -321,11 +323,13 @@ class Hulc2(nn.Module):
     def clip_auxiliary_loss(self, seq_vis_feat: torch.Tensor, encoded_lang: torch.Tensor,
                             mask: torch.Tensor) -> torch.Tensor:
         """Contrastive loss over the valid lang rows, with invalid columns
-        masked to -1e9 (``hulc2.py:262-282``)."""
+        masked to -1e9 (``hulc2.py:262-282``). In a data-parallel step every
+        rank computes it over the lang rows of all ranks."""
         img, txt = self.proj_vis_lang(seq_vis_feat, encoded_lang)
         with torch.autocast(device_type=img.device.type, enabled=False):
-            img = img.float() / img.float().norm(dim=-1, keepdim=True)
-            txt = txt.float() / txt.float().norm(dim=-1, keepdim=True)
+            img = gather_rows(img.float() / img.float().norm(dim=-1, keepdim=True))
+            txt = gather_rows(txt.float() / txt.float().norm(dim=-1, keepdim=True))
+            mask = gather_rows(mask.float())
             logits = torch.exp(self.logit_scale) * (img @ txt.T)
             mask = mask.bool()
             neg = torch.full_like(logits, -1e9)
@@ -340,15 +344,15 @@ class Hulc2(nn.Module):
             return torch.where(mask.any(), loss, torch.zeros_like(loss))
 
     def lang_task_metrics(self, lang_emb: torch.Tensor, task_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Task CE (and accuracy) over rows whose id is >= 0."""
+        """Task CE (and accuracy) over rows whose id is >= 0, over the global
+        batch in a data-parallel step."""
         logits = self.lang_task_head(lang_emb)
         valid = (task_ids >= 0).float()
         labels = task_ids.clamp(min=0).long()
         ce = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None])[:, 0]
-        denom = valid.sum().clamp(min=1.0)
         acc = (logits.argmax(dim=-1) == labels).float()
-        return {"lang_task_loss": (ce * valid).sum() / denom,
-                "lang_task_acc": (acc * valid).sum() / denom}
+        return {"lang_task_loss": masked_mean(ce, valid),
+                "lang_task_acc": masked_mean(acc, valid)}
 
     def init_carry(self, batch_size: int, device=None) -> PolicyCarry:
         """A zero carry for ``batch_size`` envs, fp32, whose first step replans

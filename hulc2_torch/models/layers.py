@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hulc2_torch.parallel.batch_shard import draw_rows
+
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every module of ``model`` that defines ``init_weights``, in
@@ -102,7 +104,8 @@ def dropout(x: torch.Tensor, p: float, deterministic: bool,
         return x
     if generator is None:
         raise ValueError("dropout with p > 0 needs a generator unless deterministic")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape,
+                     x.device) >= p
     return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
 
 

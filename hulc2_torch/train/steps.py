@@ -21,9 +21,14 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.nn as nn
 
 from hulc2_torch.data.device_transforms import LANG_KEYS
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
+from hulc2_torch.parallel import batch_shard
+from hulc2_torch.parallel.batch_shard import BatchShard
+from hulc2_torch.parallel.mesh import unwrap
 from hulc2_torch.train.optim import clip_gradients_
 from hulc2_torch.utils.device import resolve_device
 
@@ -39,7 +44,7 @@ def aux_betas_from_loss_cfg(loss_cfg: dict) -> Dict[str, float]:
     }
 
 
-def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: Callable,
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transform: Callable,
                     clip_loss_beta: float = 3.0, aux_betas: Optional[Dict[str, float]] = None,
                     device=None, scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     gradient_clip_norm: Optional[float] = None) -> Callable:
@@ -53,17 +58,27 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
     offsets among them, ``data/device_transforms``) and the plan sampler's
     draw (the parity tests hand in the same draws as the JAX side). Raises unless the model lives on ``device`` (CUDA unless
     ``device="cpu"`` is asked for).
+
+    ``model`` may be the policy wrapped for data parallelism
+    (``parallel/mesh.wrap_model``): each rank then steps on its own rows, its
+    draws and its batch-coupled losses taken over the global batch of all
+    ranks' rows (``parallel/batch_shard.py``), the gradients averaged over
+    the ranks before their norm and clipping, and the returned metrics are
+    the ranks' mean: those of one process's step on the global batch.
     """
     device = resolve_device(device)
-    param_device = next(model.parameters()).device
+    core = unwrap(model)
+    param_device = next(core.parameters()).device
     if param_device.type != device.type:
         raise ValueError(f"model is on {param_device}, the step on {device}")
-    use_autocast = device.type == "cuda" and getattr(model, "compute_dtype", None) == torch.bfloat16
+    use_autocast = device.type == "cuda" and getattr(core, "compute_dtype", None) == torch.bfloat16
     aux_betas = dict(aux_betas or {})
     params = list(model.parameters())
     # optax decays every parameter, those without a gradient in this graph
     # (GCBC's plan heads) too; torch skips a parameter whose .grad is None
     zero_fill = any(g.get("weight_decay", 0.0) for g in optimizer.param_groups)
+    world = dist.get_world_size() if model is not core or _sharded(model) else 1
+    rank = dist.get_rank() if world > 1 else 0
 
     def step(raw_batch: Dict, generator: torch.Generator,
              kl_beta: float, gumbel: Optional[torch.Tensor] = None,
@@ -80,11 +95,15 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
             # fuse BEFORE the transform: the uint8 concat moves a quarter of the bytes
             fused = {k: torch.cat([vis[k], lang[k]], dim=0) for k in vis if k in lang}
             fused.update({k: lang[k] for k in LANG_KEYS if k in lang})
-        batch = transform(fused, generator, draws)
+        shard = (BatchShard(rank, world, n_vis, fused["actions"].shape[0] - n_vis)
+                 if world > 1 else None)
         model.train()
-        with torch.autocast(device_type=device.type, dtype=torch.bfloat16, enabled=use_autocast):
-            metrics = model(batch, kl_beta, n_vis, deterministic=False, generator=generator,
-                            gumbel=gumbel)
+        with batch_shard.active(shard):
+            batch = transform(fused, generator, draws)
+            with torch.autocast(device_type=device.type, dtype=torch.bfloat16,
+                                enabled=use_autocast):
+                metrics = model(batch, kl_beta, n_vis, deterministic=False, generator=generator,
+                                gumbel=gumbel)
         loss = metrics["total_loss"]
         if "lang_clip_loss" in metrics:
             loss = loss + clip_loss_beta * metrics["lang_clip_loss"]
@@ -100,15 +119,38 @@ def make_train_step(model: Hulc2, optimizer: torch.optim.Optimizer, transform: C
                     p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params if p.grad is not None]
         metrics["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            torch.stack([torch.linalg.vector_norm(_full(g).float()) for g in grads]))
         if gradient_clip_norm:
-            clip_gradients_(grads, metrics["grad_norm"], gradient_clip_norm)
+            clip_gradients_([_local(g) for g in grads], metrics["grad_norm"], gradient_clip_norm)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return mean_over_ranks(metrics) if world > 1 else metrics
 
     return step
+
+
+def _sharded(model: nn.Module) -> bool:
+    """Whether FSDP2 shards the model's parameters."""
+    return any(hasattr(p, "full_tensor") for p in model.parameters())
+
+
+def _full(g: torch.Tensor) -> torch.Tensor:
+    return g.full_tensor() if hasattr(g, "full_tensor") else g
+
+
+def _local(g: torch.Tensor) -> torch.Tensor:
+    return g.to_local() if hasattr(g, "to_local") else g
+
+
+def mean_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each metric's mean over the process group's ranks, in one all-reduce."""
+    names = sorted(metrics)
+    values = torch.stack([metrics[k].float() for k in names])
+    dist.all_reduce(values)
+    values /= dist.get_world_size()
+    return dict(zip(names, values.unbind()))
 
 
 def make_val_step(model: Hulc2, transform: Callable) -> Callable:
@@ -130,6 +172,36 @@ def make_val_step(model: Hulc2, transform: Callable) -> Callable:
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def make_plan_sampler(model: Hulc2, transform: Callable) -> Callable:
+    """fn(raw_batch, generator, noise=None) -> (plans (B_total, P), modality
+    ids (B_total,)) for the plan-space t-SNE (``hulc2_tpu/train/steps.py:102-127``):
+    each modality of a {"vis": ..., "lang": ...} batch, in sorted order (lang
+    0, vis 1), through the val ``transform``, the perceptual encoder and the
+    posterior without dropout, and a plan sampled from it. ``noise`` maps a
+    modality to its plan's draw (Gumbel noise or a standard normal, as
+    ``Hulc2.forward``'s ``gumbel``); without it the draw comes from
+    ``generator``."""
+    device = next(model.parameters()).device
+
+    def sample(raw_batch: Dict[str, Dict[str, torch.Tensor]],
+               generator: Optional[torch.Generator],
+               noise: Optional[Dict[str, torch.Tensor]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        model.eval()
+        plans, labels = [], []
+        with torch.no_grad(), _autocast(model, device):
+            for i, mod in enumerate(sorted(raw_batch)):
+                emb = model.encode(transform(raw_batch[mod], None))
+                pr_state, _ = model.plan_recognition(emb)
+                plan = model._plan(pr_state.float(), (noise or {}).get(mod), generator,
+                                   rsample=False)
+                plans.append(plan.float())
+                labels.append(torch.full((plan.shape[0],), i, dtype=torch.int32,
+                                         device=plan.device))
+        return torch.cat(plans), torch.cat(labels)
+
+    return sample
 
 
 def _binarize_gripper(action: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The trainer loop: epochs, validation, checkpoints, auto-resume
+"""The trainer loop: epochs, validation, callbacks, checkpoints, auto-resume
 (``hulc2_tpu/train/trainer.py``).
 
 An explicit loop around the port's train and val steps, with
@@ -11,8 +11,24 @@ An explicit loop around the port's train and val steps, with
   training.max_epochs`` estimated updates, logged as ``lr``;
 - a checkpoint at the next step edge after SIGTERM or SIGUSR1 (the
   timeout-and-resubmit contract of a cluster scheduler), validation skipped;
-- per-epoch validation (``trainer.limit_val_batches``) and a checkpoint
-  every epoch, every step kept (``save_top_k: -1``);
+- per-epoch validation (``trainer.limit_val_batches``), then, as JAX orders
+  them (``:190-233``), the plan recorders (one validation batch through
+  ``make_plan_sampler`` for the t-SNE callback), the callbacks
+  (``train/callback_factory.build_callbacks``: rollouts, videos, t-SNE),
+  each in a ``try`` so that a failing one never costs the epoch's
+  checkpoint, their own keys logged, and the checkpoint, kept by
+  ``callbacks/checkpoint`` (every step, the newest k, or the best k by its
+  monitor over ``val/<key>`` and the callbacks' keys); after SIGTERM or
+  SIGUSR1 the callbacks are skipped;
+- the sinks of ``logger``: metrics.jsonl, and tensorboard (``tb``) or
+  wandb;
+- data parallelism over the processes of a started process group
+  (``parallel/mesh.py``, one process per rank under ``torchrun``): the
+  policy in DDP, each rank on its shard of the datamodule's batches and the
+  step's draws and batch-coupled losses over the global batch
+  (``train/steps.make_train_step``); validation and the rollouts split over
+  the ranks and their metrics reduced; only the main process logs and
+  writes checkpoints, and every rank resumes from the same step;
 - the training split's statistics in ``<run_dir>/statistics.json``, which
   the eval's agent normalises robot_obs with;
 - ``trainer.limit_train_batches``, ``log_every_n_steps`` and ``max_steps``.
@@ -27,8 +43,7 @@ The random draws of step k (crop offsets, plan sample, dropout) come from a
 generator seeded with a function of (seed, k), as the JAX step folds the
 step into its root key, and the batches of epoch e follow the loader's
 order for e: a resumed run takes the same batches and draws as an
-uninterrupted one. The trainer's callbacks (rollouts, t-SNE) and the
-wandb / tensorboard sinks are not ported.
+uninterrupted one.
 """
 from __future__ import annotations
 
@@ -43,21 +58,24 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from hulc2_torch import kernels
 from hulc2_torch.core.checkpoint import CheckpointManager, save_run_config
-from hulc2_torch.core.metrics import MetricsLogger
+from hulc2_torch.core.metrics import MetricsLogger, get_git_commit_hash, print_system_env_info
 from hulc2_torch.data.device_transforms import make_batch_transform
 from hulc2_torch.data.loader import DevicePrefetcher, to_device
 from hulc2_torch.data.statistics import save_statistics
 from hulc2_torch.models.build import build_policy_for
 from hulc2_torch.models.hulc2 import Hulc2
+from hulc2_torch.parallel import mesh as mesh_lib
 from hulc2_torch.train.kl_schedule import make_kl_schedule
 from hulc2_torch.train.optim import make_optimizer, make_scheduler, schedule_value
-from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step, make_val_step
+from hulc2_torch.train.steps import (aux_betas_from_loss_cfg, make_plan_sampler, make_train_step,
+                                     make_val_step, mean_over_ranks)
 from hulc2_torch.utils.device import resolve_device, set_precision_flags
 
 logger = logging.getLogger(__name__)
 
-TRAIN_STREAM, VAL_STREAM = 0, 1
+TRAIN_STREAM, VAL_STREAM, PLAN_STREAM = 0, 1, 2
 
 
 def step_seed(seed: int, stream: int, k: int) -> int:
@@ -73,6 +91,11 @@ class FitResult:
     resumed_from: Optional[int]
     history: List[Dict[str, float]] = field(default_factory=list)  # logged train lines
     val_history: List[Dict[str, float]] = field(default_factory=list)
+    callback_history: List[Dict[str, float]] = field(default_factory=list)  # callbacks' keys
+    callback_errors: List[str] = field(default_factory=list)  # "epoch e: callback: error"
+    # per eval epoch, each callback's wall time in s (host clock, ending in a sync)
+    callback_seconds: List[Dict[str, float]] = field(default_factory=list)
+    callbacks: List = field(default_factory=list)
     step_ms: List[float] = field(default_factory=list)  # per logged line, see fit
     wait_ms: List[float] = field(default_factory=list)
     # the device frame store's resident bytes and upload time; None when the
@@ -82,15 +105,23 @@ class FitResult:
 
 
 class Trainer:
-    def __init__(self, cfg: dict, datamodule, run_dir, device=None):
-        """``run_dir`` may be None for a trainer whose ``fit`` is not called."""
+    def __init__(self, cfg: dict, datamodule, run_dir, device=None,
+                 callbacks: Optional[List] = None):
+        """``run_dir`` may be None for a trainer whose ``fit`` is not called.
+        With a started process group the policy trains data-parallel over
+        its ranks; ``model`` stays the policy, ``train_model`` its wrapper."""
         self.cfg = cfg
         self.dm = datamodule
         self.run_dir = None if run_dir is None else Path(run_dir)
         self.device = resolve_device(device)
+        self.callbacks = list(callbacks or [])
         set_precision_flags()
         self.seed = int(cfg["training"].get("seed", 42))
         self.model = build_policy_for(cfg, seed=self.seed).to(self.device)
+        self.is_main = mesh_lib.process_index() == 0
+        # JAX's trainer builds its mesh at fsdp 1 only (trainer.py:46)
+        mesh = mesh_lib.make_mesh() if torch.distributed.is_initialized() else None
+        self.train_model = mesh_lib.wrap_model(self.model, mesh)
         opt_cfg = cfg["model"]["optimizer"]
         self.optimizer = make_optimizer(self.model.parameters(), opt_cfg)
         # the schedule's length as the JAX trainer estimates it (trainer.py:64-68):
@@ -102,7 +133,7 @@ class Trainer:
         callbacks = cfg.get("callbacks") or {}
         self.kl_schedule = make_kl_schedule(
             callbacks.get("kl_schedule") or {"kind": "constant", "kl_beta": cfg["loss"]["kl_beta"]})
-        self.save_top_k = (callbacks.get("checkpoint") or {}).get("save_top_k", -1)
+        self.checkpoint_cfg = callbacks.get("checkpoint") or {}
         self.generator = torch.Generator(device=self.device)
         self._preempted = False
 
@@ -129,7 +160,7 @@ class Trainer:
     def make_train_step(self):
         """The train step (``train/steps.make_train_step``) of this model and
         optimizer, with the training split's transform."""
-        return make_train_step(self.model, self.optimizer, self._transform(True),
+        return make_train_step(self.train_model, self.optimizer, self._transform(True),
                                self.cfg["loss"]["clip_auxiliary_loss_beta"],
                                aux_betas_from_loss_cfg(self.cfg["loss"]), device=self.device,
                                scheduler=self.scheduler,
@@ -138,10 +169,15 @@ class Trainer:
 
     def fit(self, max_epochs: Optional[int] = None, max_steps: Optional[int] = None) -> FitResult:
         cfg, tcfg = self.cfg, self.cfg.get("trainer") or {}
-        save_run_config(self.run_dir, cfg)
-        # the eval normalises robot_obs with the statistics the run trained on
-        save_statistics(self.run_dir, self.dm.stats["training"])
-        mlog = MetricsLogger(self.run_dir)
+        if self.is_main:
+            save_run_config(self.run_dir, cfg)
+            # the eval normalises robot_obs with the statistics the run trained on
+            save_statistics(self.run_dir, self.dm.stats["training"])
+        sink = cfg.get("logger", "jsonl")
+        mlog = MetricsLogger(self.run_dir, use_wandb=sink == "wandb", use_tb=sink == "tb",
+                             is_main=self.is_main)
+        logger.info("git commit: %s", get_git_commit_hash(Path(__file__).parent))
+        print_system_env_info(self.device)
         previous = self._install_signal_handlers()
         try:
             return self._fit(cfg, tcfg, mlog, max_epochs, max_steps)
@@ -152,7 +188,10 @@ class Trainer:
 
     def _fit(self, cfg, tcfg, mlog, max_epochs, max_steps) -> FitResult:
         steps_per_epoch = self.dm.steps_per_epoch()
-        ckpt = CheckpointManager(self.run_dir, self.save_top_k)
+        ckpt = CheckpointManager(self.run_dir, self.checkpoint_cfg.get("save_top_k", -1),
+                                 self.checkpoint_cfg.get("monitor"),
+                                 self.checkpoint_cfg.get("mode", "min"),
+                                 [k for cb in self.callbacks for k in getattr(cb, "metric_names", ())])
         step, resumed_from = 0, None
         restored = ckpt.restore()
         if restored is not None:
@@ -162,7 +201,7 @@ class Trainer:
                 self.scheduler.load_state_dict(restored["scheduler"])
             step = resumed_from = restored["step"]
             logger.info("auto-resumed from step %d", step)
-        result = FitResult(self.model, step, resumed_from)
+        result = FitResult(self.model, step, resumed_from, callbacks=self.callbacks)
 
         train_step = self.make_train_step()
         val_step = make_val_step(self.model, self._transform(False))
@@ -183,6 +222,7 @@ class Trainer:
             logger.info("epoch %d (kl_beta=%.5f)", epoch, kl_beta)
             loader.epoch = epoch
             it = DevicePrefetcher(loader, self.device)
+            launches = dict(kernels.LAUNCHES)
             t_epoch = t_log = time.perf_counter()
             n_samples = since_log = epoch_batches = 0
             wait_log = 0.0
@@ -220,8 +260,11 @@ class Trainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt_epoch = time.perf_counter() - t_epoch
+            # this process's kernel launches in the epoch's train steps
             mlog.log({"samples_per_sec": n_samples / dt_epoch, "epoch_time_s": dt_epoch,
-                      "prefetch_wait_s": it.wait_s}, step, prefix="perf/")
+                      "prefetch_wait_s": it.wait_s,
+                      **{f"kernel_launches_{k}": n - launches[k]
+                         for k, n in kernels.LAUNCHES.items()}}, step, prefix="perf/")
 
             # validation is skipped after a preemption signal: the
             # timeout-and-resubmit contract wants the checkpoint now
@@ -229,16 +272,65 @@ class Trainer:
                 val_step, tcfg.get("limit_val_batches"))
             if val_metrics:
                 result.val_history.append(mlog.log(val_metrics, step, prefix="val/"))
-            ckpt.save(step, self.model, self.optimizer, val_metrics, self.scheduler)
+            saved = {f"val/{k}": v for k, v in val_metrics.items()}
+            if not self._preempted:
+                self._record_plans(step)
+                cb_metrics = self._run_callbacks(epoch, result)
+                if cb_metrics:
+                    result.callback_history.append(mlog.log(cb_metrics, step))
+                saved.update(cb_metrics)
+            if self.is_main:
+                ckpt.save(step, self.model, self.optimizer, saved, self.scheduler)
+            mesh_lib.barrier()
             result.step = step
             if self._preempted or (max_steps and total_steps >= max_steps):
                 logger.warning("stopping early (preempted=%s)", self._preempted)
                 break
         return result
 
+    def _record_plans(self, step: int) -> None:
+        """One validation batch's plans and modality ids for each callback
+        that records them (the t-SNE's)."""
+        recorders = [cb for cb in self.callbacks if hasattr(cb, "record")]
+        if not recorders or not self.model.use_plan:
+            return
+        if not hasattr(self, "_plan_sampler"):
+            self._plan_sampler = make_plan_sampler(self.model, self._transform(False))
+        batches = self.dm.val_iter()
+        raw = next(batches)
+        batches.close()
+        self.generator.manual_seed(step_seed(self.seed, PLAN_STREAM, step))
+        plans, labels = self._plan_sampler(to_device(raw, self.device), self.generator)
+        for cb in recorders:
+            cb.record(plans.cpu().numpy(), labels.cpu().numpy())
+
+    def _run_callbacks(self, epoch: int, result: FitResult) -> Dict[str, float]:
+        """Each callback on this epoch, the policy in eval mode; returns the
+        keys they added. A failing callback is logged and skipped."""
+        metrics: Dict[str, float] = {}
+        seconds: Dict[str, float] = {}
+        self.model.eval()
+        try:
+            for i, cb in enumerate(self.callbacks):
+                t0 = time.perf_counter()
+                try:
+                    cb(self, epoch=epoch, val_metrics=metrics)
+                except Exception as e:  # noqa: BLE001 - never costs the checkpoint
+                    logger.exception("callback %r failed; continuing (checkpoint kept)", cb)
+                    result.callback_errors.append(f"epoch {epoch}: {type(cb).__name__}: {e!r}")
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                seconds[f"{i}_{type(cb).__name__}"] = time.perf_counter() - t0
+        finally:
+            self.model.train()
+        result.callback_seconds.append(seconds)
+        return metrics
+
     def validate(self, val_step, max_batches: Optional[int] = None) -> Dict[str, float]:
         """Mean val metrics over the validation split's batches (the first
-        ``max_batches``); batch i draws from a generator seeded from (seed, i)."""
+        ``max_batches``); batch i draws from a generator seeded from (seed, i).
+        In a data-parallel run each rank validates its shard of the batches
+        and the means are averaged over the ranks."""
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         for i, raw in enumerate(self.dm.val_iter()):
@@ -252,6 +344,8 @@ class Trainer:
         if not count:
             return {}
         names = sorted(sums)
-        values = torch.stack([sums[k] for k in names]).tolist()
-        return {k: v / count for k, v in zip(names, values)}
+        values = torch.stack([sums[k] for k in names])
+        if mesh_lib.process_count() > 1:
+            values = torch.stack(list(mean_over_ranks(dict(zip(names, values))).values()))
+        return {k: v / count for k, v in zip(names, values.tolist())}
 

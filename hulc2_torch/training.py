@@ -5,6 +5,8 @@
         datamodule.root_data_dir=DATASET [key=value ...]
     python -m hulc2_torch.training --synthetic --max-steps 3 [--device cuda|cpu]
         [--run-dir DIR] [key=value ...]
+    torchrun --nproc_per_node N -m hulc2_torch.training --run-dir DIR
+        datamodule.root_data_dir=DATASET [key=value ...]
 
 Without ``--config-name`` it builds the flagship policy
 (``configs/flagship.py``); with it, the registry's root of that name
@@ -23,6 +25,18 @@ resumes from its newest checkpoint. With ``datamodule.device_store=true``
 ``false`` (``cfg_low_level``) each batch is assembled on the host from the
 npz files through the native loader, or with ``--shm-cache`` from a
 shared-memory cache of the split.
+
+The trainer runs the callbacks of ``callbacks.rollout_lh``,
+``callbacks.rollout`` and ``callbacks.tsne_plot`` (``train/callback_factory.py``)
+after each validation, keeps checkpoints by ``callbacks/checkpoint=<preset>``
+and logs to the sinks of ``logger=jsonl|tb|wandb``. A text-tower policy's
+rollout goals are token ids; an embedding policy's come from the dataset's
+``validation/<lang_folder>/embeddings.npy`` (``hulc2_tpu/training.py:56-71``).
+
+Under ``torchrun`` each process is one data-parallel rank: it starts the
+process group (``nccl`` on the card, ``gloo`` with ``--device cpu``),
+trains on ``cuda:LOCAL_RANK`` unless ``--device`` says otherwise, and takes
+its shard of every epoch's batches (``parallel/mesh.py``).
 
 ``--synthetic`` takes ``--max-steps`` fused train steps on synthetic windows
 made on the device, without validation or checkpoints. Each step appends one
@@ -50,6 +64,9 @@ from hulc2_torch.data.random_data import RandomWindowBatches
 from hulc2_torch.models.build import build_policy_for
 from hulc2_torch.models.clip_text import ClipTextTransformer
 from hulc2_torch.models.hulc2 import Hulc2
+from hulc2_torch.parallel.mesh import (initialize_distributed, launched_by_torchrun, local_rank,
+                                       process_count, process_index)
+from hulc2_torch.train.callback_factory import build_callbacks
 from hulc2_torch.train.optim import make_optimizer, make_scheduler
 from hulc2_torch.train.steps import aux_betas_from_loss_cfg, make_train_step
 from hulc2_torch.train.trainer import FitResult, Trainer
@@ -135,15 +152,29 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def rollout_lang_embeddings(cfg: dict) -> Optional[Dict]:
+    """The dataset's validation sentence -> embedding table for the rollout
+    callbacks' language goals, or None without an ``embeddings.npy``."""
+    from hulc2_torch.evaluation.evaluate_policy import load_lang_embeddings_file
+
+    path = (Path(cfg["datamodule"]["root_data_dir"]) / "validation"
+            / cfg["datamodule"].get("lang_folder", "lang_annotations") / "embeddings.npy")
+    return load_lang_embeddings_file(path)[0] if path.is_file() else None
+
+
 def fit(cfg: dict, run_dir, max_epochs: Optional[int] = None, max_steps: Optional[int] = None,
         device=None, shm_cache: bool = False) -> FitResult:
     """Train the policy ``cfg`` from the dataset at ``datamodule.root_data_dir``
-    into ``run_dir``, resuming from its newest checkpoint."""
+    into ``run_dir`` with the callbacks it asks for, resuming from its newest
+    checkpoint; one data-parallel rank of a started process group."""
     dm = Hulc2DataModule(cfg["datamodule"], seed=cfg.get("seed", 42), device=device,
-                         use_shm_cache=shm_cache)
+                         use_shm_cache=shm_cache, process_index=process_index(),
+                         process_count=process_count())
     try:
         dm.setup()
-        return Trainer(cfg, dm, run_dir, device=dm.device).fit(max_epochs, max_steps)
+        callbacks = build_callbacks(cfg, run_dir, rollout_lang_embeddings(cfg))
+        return Trainer(cfg, dm, run_dir, device=dm.device, callbacks=callbacks).fit(
+            max_epochs, max_steps)
     finally:
         dm.close()
 
@@ -157,7 +188,8 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="stop after this many steps (required with --synthetic)")
     parser.add_argument("--max-epochs", type=int, default=None,
                         help="train up to this epoch (default: training.max_epochs)")
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu")
     parser.add_argument("--run-dir", default=None,
                         help="run dir (default: runs/torch_synthetic or runs/torch_train)")
     parser.add_argument("--config-name", default=None, choices=options("root"),
@@ -168,14 +200,20 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parser.parse_intermixed_args(argv)
     cfg = (flagship_config(args.overrides) if args.config_name is None
            else compose(args.config_name, args.overrides))
+    device = args.device or (f"cuda:{local_rank()}" if launched_by_torchrun() else "cuda")
     if args.synthetic:
         if args.max_steps is None:
             parser.error("--synthetic needs --max-steps")
         if args.shm_cache:
             parser.error("--shm-cache reads a dataset: it does not go with --synthetic")
-        return train(cfg, args.max_steps, args.device, args.run_dir or "runs/torch_synthetic")
-    return fit(cfg, args.run_dir or "runs/torch_train", args.max_epochs, args.max_steps,
-               args.device, args.shm_cache)
+        return train(cfg, args.max_steps, device, args.run_dir or "runs/torch_synthetic")
+    started = not torch.distributed.is_initialized() and initialize_distributed(device)
+    try:
+        return fit(cfg, args.run_dir or "runs/torch_train", args.max_epochs, args.max_steps,
+                   device, args.shm_cache)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -799,7 +799,7 @@ def test_fused_render_policy_step_matches_jax(monkeypatch, case):
     dm = cfg["datamodule"]
     ttf = tdt.make_batch_transform(obs, dm["proprioception_dims"], dm["transforms"], train=False,
                                    stats=stats)
-    tfn = make_fused_render_policy_step(tmodel, ttf, make_render_obs_fn(96, 64, with_depth=with_depth),
+    tfn = make_fused_render_policy_step(tmodel, ttf, make_render_obs_fn(96, 64, with_depth=with_depth, device="cpu"),
                                         rgb, depth)
     k = 3
     lang = rng.standard_normal((k, EMB_DIM)).astype(np.float32)
@@ -946,7 +946,7 @@ def test_scene_obs_reaches_every_path_where_jax_drops_it():
     assert "scene_obs" not in jseen
     with pytest.raises(Seen):
         make_render_policy = make_fused_render_policy_step(
-            tmodel, recording(tseen, 0), make_render_obs_fn(96, 64, with_depth=False), ["rgb_static"])
+            tmodel, recording(tseen, 0), make_render_obs_fn(96, 64, with_depth=False, device="cpu"), ["rgb_static"])
         make_render_policy({n: torch.from_numpy(v) for n, v in state.items()}, {}, None, None)
     np.testing.assert_array_equal(tseen["scene_obs"][:, 0].numpy(), obs["scene_obs"])
     with pytest.raises(KeyError, match="scene_obs"):

@@ -300,7 +300,7 @@ class TestFusedRenderStep:
         jfn = jax_fused(jmodel, jtf, jax_render_fn(96, 64, with_depth=False), keys, [])
         ttf = make_batch_transform(dm["observation_space"], dm["proprioception_dims"],
                                    dm["transforms"], train=False)
-        tfn = make_fused_render_policy_step(tmodel, ttf, make_render_obs_fn(96, 64, with_depth=False),
+        tfn = make_fused_render_policy_step(tmodel, ttf, make_render_obs_fn(96, 64, with_depth=False, device="cpu"),
                                             keys)
         rng = np.random.default_rng(7)
         lang = random_tokens(rng, k)
@@ -335,7 +335,7 @@ class TestRenderer:
         from hulc2_tpu.envs.render_jax import make_render_obs_fn as jax_render_fn
 
         scenes, robots, refs = random_states(6, seed=1, static_hw=hw[0], gripper_hw=hw[1])
-        got = make_render_obs_fn(*hw)(torch.from_numpy(scenes), torch.from_numpy(robots))
+        got = make_render_obs_fn(*hw, device="cpu")(torch.from_numpy(scenes), torch.from_numpy(robots))
         want = jax.jit(jax_render_fn(*hw))(scenes, robots)
         for key in ("rgb_static", "rgb_gripper"):
             host = np.stack([r["rgb_obs"][key] for r in refs])
@@ -353,7 +353,7 @@ class TestRenderer:
         from hulc2_tpu.envs.render_jax import make_render_obs_fn as jax_render_fn
 
         scenes, robots = _scene_states(16, seed=2)
-        got = make_render_obs_fn(96, 64)(torch.from_numpy(scenes), torch.from_numpy(robots))
+        got = make_render_obs_fn(96, 64, device="cpu")(torch.from_numpy(scenes), torch.from_numpy(robots))
         want = jax.jit(jax_render_fn(96, 64))(scenes, robots)
         for key in ("rgb_static", "rgb_gripper"):
             self._assert_close_frames(np.asarray(want[key]), got[key].numpy(), key)
@@ -363,7 +363,7 @@ class TestRenderer:
         from hulc2_torch.envs.fake_env import FakeCalvinEnv
 
         env = FakeCalvinEnv(static_hw=96, gripper_hw=64)
-        fn = make_render_obs_fn(96, 64)
+        fn = make_render_obs_fn(96, 64, device="cpu")
         for s1 in (0.0, 0.01, 0.05, 0.22):
             env.reset()
             env.scene_obs[1] = s1
@@ -374,7 +374,7 @@ class TestRenderer:
 
     def test_no_depth_variant(self):
         scenes, robots = _scene_states(2, seed=3)
-        out = make_render_obs_fn(96, 64, with_depth=False)(torch.from_numpy(scenes),
+        out = make_render_obs_fn(96, 64, with_depth=False, device="cpu")(torch.from_numpy(scenes),
                                                            torch.from_numpy(robots))
         assert set(out) == {"rgb_static", "rgb_gripper"}
         assert out["rgb_static"].shape == (2, 96, 96, 3) and out["rgb_static"].dtype == torch.uint8
