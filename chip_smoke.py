@@ -250,7 +250,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
    and the all-reduce's share; each rank's launches exactly 2 per step; then
    ``torchrun --nproc_per_node 1 -m hulc2_torch.training`` over nccl, one
    epoch of TORCHRUN_STEPS steps, twice per step by its own count;
-47. the kernels line, the card line, and the final JSON line.
+47. (ao) the dataset tools: ``python -m hulc2_torch.tools.make_synthetic_dataset``
+   at the JAX package's defaults (200/84 px, 2 x 400 training frames, 1 x
+   150 validation, 384-d hash embeddings), ``split_dataset`` and
+   ``compute_proprioception_statistics`` on its training split, labels mined
+   into its root and ``create_percentage_splits`` on them, the annotator's
+   ``--stats``, ``relabel_dataset`` with the full-width CLIP text tower
+   (random init) on the card against the same tower on the CPU (rel 1e-3);
+   then ``python -m hulc2_torch.training --config-name cfg_low_level`` from it,
+   SYN_STEPS steps and 1 val batch, counts reset just before and read just
+   after, 2 x train steps + 4 x val steps, the run's statistics those that
+   ``split_dataset`` wrote; the kernel bit for bit at the run's shapes;
+48. (ap) ``flops_probe``: the FLOPs of one ``cfg_low_level`` train step (32 + 32
+   windows of 32 frames) and of one flagship step on the card, equal to the
+   count on the CPU; with ``--measure`` the wall and device-busy time, the
+   achieved TFLOP/s and the MFU against the card's bf16 peak, counts reset
+   before each probe and read after it: 2 launches per step;
+49. (aq) ``profile_train --config-name cfg_low_level --trace`` for PROFILE_STEPS
+   steps, then ``roofline`` on the trace: the top 10 kernels that are not
+   products, and the shift kernel's share of the memory rate against the
+   share of its bound that (q) measured (within 10 points); 2 launches per
+   step;
+50. (ar) ``visualize_dataset affordance`` with (ah)'s ``rn18_pixel`` detector on
+   the card over (ah)'s labels: errors.json written, PNGs where cv2,
+   matplotlib and imageio import (else listed); (k)'s token detector refused;
+   the play viewer and ``make_seq_videos`` where imageio imports (else
+   listed);
+51. the kernels line, the card line, and the final JSON line.
 """
 from __future__ import annotations
 
@@ -466,11 +492,23 @@ CB_CALLBACKS = [
     "callbacks.checkpoint.save_top_k=1",
 ]
 DIAGNOSTICS = {"video": ("cv2", "imageio"), "t-SNE": ("sklearn", "matplotlib"),
-               "tensorboard": ("tensorboard",)}
+               "tensorboard": ("tensorboard",),
+               "affordance preview images": ("cv2", "matplotlib", "imageio"),
+               "play video": ("cv2", "imageio"), "make_seq_videos": ("cv2", "imageio")}
 DP_WORLD, DP_STEPS = 2, 3
 DP_SGD = ["model/optimizer=sgd", "model.optimizer.lr=0.05"]
 TORCHRUN_RUN = BUILD / "chip_smoke_torchrun"
 TORCHRUN_STEPS = 4
+# the dataset and measurement tools (ao)-(ar): the synthetic dataset at the
+# JAX package's defaults, a cfg_low_level run of SYN_STEPS steps from it, the
+# FLOPs and MFU of cfg_low_level's and the flagship's step, the roofline of
+# PROFILE_STEPS profiled cfg_low_level steps, the affordance preview
+SYN_DATA = BUILD / "chip_smoke_synthetic"
+SYN_RUN = BUILD / "chip_smoke_synthetic_run"
+SYN_STEPS = 4
+PROFILE_STEPS = 3
+TRACE = BUILD / "chip_smoke_cfg_low_level_trace.json"
+PREVIEW_DIR = BUILD / "chip_smoke_aff_preview"
 BF16_PRESETS = {
     "cfg_low_level_rw": ("cfg_low_level_rw", []),
     "static_clip RN50": ("cfg_low_level", ["model/perceptual_encoder=static_clip",
@@ -2665,14 +2703,15 @@ def real_env_phases(dev: torch.device, card: str) -> tuple:
     return paths, rows
 
 
-def lacking_packages() -> dict:
-    """Diagnostic -> the packages it needs that do not import on this host."""
+def lacking_packages(*diags: str) -> dict:
+    """Each of ``diags`` (a key of DIAGNOSTICS) -> the packages it needs that
+    do not import on this host."""
     import importlib
 
     lacking = {}
-    for diag, mods in DIAGNOSTICS.items():
+    for diag in diags:
         lacking[diag] = []
-        for m in mods:
+        for m in DIAGNOSTICS[diag]:
             try:
                 importlib.import_module(m)
             except Exception:  # noqa: BLE001 - absent or broken: the diagnostic is not driven
@@ -2687,7 +2726,7 @@ def phase_callbacks(dev: torch.device, card: str) -> dict:
     from hulc2_torch import kernels, training
     from hulc2_torch.core.checkpoint import CheckpointManager
 
-    lacking = lacking_packages()
+    lacking = lacking_packages("video", "t-SNE", "tensorboard")
     driven = [d for d, miss in lacking.items() if not miss]
     print(f"[callbacks] diagnostics driven: {driven or 'none'}; not driven: "
           f"{ {d: miss for d, miss in lacking.items() if miss} or 'none'} (packages that do not "
@@ -2774,6 +2813,250 @@ def phase_callbacks(dev: torch.device, card: str) -> dict:
           f"{launches}; on {card}", flush=True)
     return {"launches": launches, "callback_s": sum(eval_epoch.values()),
             "rate": env_steps / rollout_s}
+
+
+def hold_kernel(dev: torch.device, shapes: dict, tag: str, seed: int) -> float:
+    """The kernel against its plain version at ``shapes`` ({camera: (frames,
+    side, pad)}), fp32 and bf16, bit for bit; returns the largest error."""
+    from hulc2_torch.ops import preprocess
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    worst = 0.0
+    for k, (cam, (n, hw, pad)) in enumerate(shapes.items()):
+        imgs, offsets = bench.make_sets(n, hw, pad, 1, dev, seed + k)[0]
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = preprocess.random_shift_normalize(imgs, offsets, pad, [0.5], [0.5], out_dtype)
+            want = preprocess.shift_normalize_plain(imgs, offsets, pad, [0.5], [0.5], out_dtype)
+            torch.cuda.synchronize(dev)
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"[{tag}] shift_normalize {cam} {n}x{hw}x{hw}x3 pad {pad} {out_dtype}: "
+                  f"max_abs_err {err:.3g} (tol 0)", flush=True)
+            if err > 0 or got.shape != want.shape or not torch.isfinite(got.float()).all():
+                fail(f"shift_normalize disagrees with its plain version at {cam} {hw}px {out_dtype}")
+            worst = max(worst, err)
+        del imgs, offsets, got, want
+    return worst
+
+
+def phase_dataset_tools(dev: torch.device, card: str) -> dict:
+    """(ao) The synthetic dataset, its split, statistics, percentage splits,
+    task statistics and CLIP relabelling, then a cfg_low_level run from it;
+    returns the run's launches and the kernel's error at its shapes."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from hulc2_torch.affordance import dataset_creation
+    from hulc2_torch.data.statistics import load_run_statistics
+    from hulc2_torch.models.language import OfflineClipTextEncoder
+    from hulc2_torch.tools import (auto_lang_annotator, bench_shift_normalize, dataset_tools,
+                                   make_synthetic_dataset, split_dataset)
+
+    shutil.rmtree(SYN_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    make_synthetic_dataset.main([str(SYN_DATA)])
+    gen_s = time.perf_counter() - t0
+    frames = {split: int(sum(e - s + 1 for s, e in np.load(SYN_DATA / split / "ep_start_end_ids.npy")))
+              for split in ("training", "validation")}
+    if frames != {"training": 800, "validation": 150}:
+        fail(f"the synthetic dataset holds {frames} frames, expected 800 + 150")
+    train = SYN_DATA / "training"
+    t0 = time.perf_counter()
+    split = split_dataset.split_dataset(train)
+    stats = split_dataset.compute_statistics(train, split["training"])
+    proprio = dataset_tools.compute_proprioception_statistics(train)
+    info = dataset_creation.main([str(SYN_DATA), "--out-dir", str(SYN_DATA)])
+    subsets = dataset_tools.create_percentage_splits(SYN_DATA)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        auto_lang_annotator.main([str(train), "--stats"])
+    task_stats = out.getvalue().strip().replace("\n", ", ")
+    tools_s = time.perf_counter() - t0
+    kept = [sum(len(c["static_cam"]) for c in json.loads(f.read_text())["training"].values()
+                if isinstance(c, dict)) for f in subsets]
+    labels = sum(len(c["static_cam"]) for c in info["training"].values())
+    if proprio["n_frames"] != 800 or not (labels >= kept[0] >= kept[1] >= kept[2] > 0):
+        fail(f"the tools' outputs: {proprio['n_frames']} frames, {labels} labels, subsets {kept}")
+    print(f"[dataset_tools] make_synthetic_dataset at the JAX defaults: {frames['training']} + "
+          f"{frames['validation']} frames in {gen_s:.1f} s "
+          f"({sum(frames.values()) / gen_s:.1f} frames/s); split_dataset {split}, "
+          f"proprioception statistics over {proprio['n_frames']} frames, {labels} training labels "
+          f"mined and percentage subsets of {kept}, task statistics: {task_stats or 'none'}; "
+          f"{tools_s:.1f} s", flush=True)
+    # the relabelling with the full-width CLIP text tower on the card
+    enc_card = OfflineClipTextEncoder(device=dev)
+    t0 = time.perf_counter()
+    lang = auto_lang_annotator.relabel_dataset(train, embed_fn=enc_card.embed)
+    relabel_s = time.perf_counter() - t0
+    anns = lang["language"]["ann"]
+    want = OfflineClipTextEncoder(device="cpu").embed(anns)
+    got = lang["language"]["emb"][:, 0]
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    written = np.load(train / "lang_annotations_relabeled" / "auto_lang_ann.npy",
+                      allow_pickle=True).item()["language"]["emb"]
+    print(f"[dataset_tools] relabel_dataset with OfflineClipTextEncoder (width 512, 12 layers, "
+          f"1024-d, random init) on the card: {len(anns)} annotations and each task's canonical "
+          f"sentence in {relabel_s:.2f} s; worst difference from the CPU encoder rel "
+          f"{rel:.3g} (tol 1e-3); on {card}", flush=True)
+    if rel > 1e-3 or written.shape != (len(anns), 1, 1024) or not np.isfinite(written).all():
+        fail(f"the card's relabelled embeddings: rel {rel:.3g}, shape {written.shape}")
+    del enc_card
+    torch.cuda.empty_cache()
+    run = phase_low_train(dev, card, "dataset_tools_train", SYN_RUN, "cfg_low_level",
+                          [f"datamodule.root_data_dir={SYN_DATA}"], SYN_STEPS, 1)
+    del run["model"]
+    run_stats = load_run_statistics(SYN_RUN)
+    mean = np.asarray(stats["robot_obs"][0]["mean"], np.float32)
+    if run_stats is None or not np.allclose(run_stats.robot_obs_mean, mean, rtol=1e-6, atol=0):
+        fail("the run's statistics are not the ones split_dataset wrote")
+    err = hold_kernel(dev, bench_shift_normalize.RAND_SHIFT_SHAPES, "dataset_tools", 70)
+    print(f"[dataset_tools] the run read split_dataset's statistics.yaml (robot_obs mean "
+          f"equal to rel 1e-6); launches {run['launches']}", flush=True)
+    return {**run, "max_abs_err": err}
+
+
+def phase_flops(dev: torch.device, card: str) -> dict:
+    """(ap) The FLOPs of one cfg_low_level and one flagship train step on the
+    card and on the CPU, then the MFU of each on the card; returns the
+    launches and the numbers."""
+    from hulc2_torch import kernels
+    from hulc2_torch.tools import flops_probe
+
+    out, paths = {}, {}
+    for name in ("cfg_low_level", "flagship"):
+        t0 = time.perf_counter()
+        _, cpu = flops_probe.probe(name, (), 32, "cpu")
+        cpu_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run, got = flops_probe.probe(name, (), 32, dev)
+        got.update(flops_probe.measure(run, got["flops"], 5, 5))
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        del run
+        torch.cuda.empty_cache()
+        steps = 1 + 5 + 5 + 5  # counted, warm-up, timed, profiled
+        print(f"[flops] {name}: {got['flops']:.6e} FLOPs a train step ({got['batch']} + "
+              f"{got['batch']} windows of {got['window']} frames; {got['compute_dtype']} on the "
+              f"card), CPU count {cpu['flops']:.6e} ({cpu_s:.1f} s), equal: "
+              f"{got['flops'] == cpu['flops']}; by op: {got['flops_by_op']}", flush=True)
+        print(f"[flops] {name}: wall {got['wall_ms']:.2f} ms, device busy {got['busy_ms']:.2f} ms, "
+              f"achieved {got['achieved_tflops']:.2f} TFLOP/s, mfu {got['mfu']:.4f} of "
+              f"{got['peak_tflops']:.0f} TFLOP/s ({got['compute_dtype']}), over the wall "
+              f"{got['mfu_wall']:.4f}; {card_s:.1f} s; on {got['card']}", flush=True)
+        if got["flops"] != cpu["flops"]:
+            fail(f"{name}: the card counts {got['flops_by_op']}, the CPU {cpu['flops_by_op']}")
+        if launches["shift_normalize"] != 2 * steps:
+            fail(f"{name}: shift_normalize launched {launches['shift_normalize']} times in "
+                 f"{steps} steps, expected {2 * steps}")
+        out[name] = got
+        paths[f"flops_{name}"] = {"launches": launches}
+    return {"paths": paths, **out}
+
+
+def phase_roofline(dev: torch.device, card: str, low_kernel: dict) -> dict:
+    """(aq) ``profile_train --trace`` of cfg_low_level, then ``roofline`` on the
+    trace; the shift kernel's share of the memory rate against (q)'s share
+    of its bound; returns the launches and the rows."""
+    from hulc2_torch import kernels
+    from hulc2_torch.tools import profile_train, roofline
+
+    TRACE.unlink(missing_ok=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    profile_train.main(["--config-name", "cfg_low_level", "--steps", str(PROFILE_STEPS),
+                        "--warmup", "3", "--trace", str(TRACE)])
+    torch.cuda.synchronize(dev)
+    launches = dict(kernels.LAUNCHES)
+    want = 2 * (3 + 2 * PROFILE_STEPS)
+    if launches["shift_normalize"] != want:
+        fail(f"profile_train launched shift_normalize {launches['shift_normalize']} times, "
+             f"expected {want}")
+    r = roofline.roofline(TRACE, PROFILE_STEPS, top=10)
+    full = roofline.roofline(TRACE, PROFILE_STEPS, top=10_000)
+    print(f"[roofline] cfg_low_level, {PROFILE_STEPS} profiled steps ({time.perf_counter() - t0:.1f} "
+          f"s with the profile): device {r['device_ms_per_step']:.3f} ms a step, kernels other than "
+          f"products {r['non_product_pct']:.1f}% of it; memory rate {r['hbm_gbps']:.0f} GB/s "
+          f"({r['device']}); on {card}", flush=True)
+    print("[roofline]  ms/step   %dev  execs    MB/step     GB/s  roof%  kernel [op]", flush=True)
+    for row in r["rows"]:
+        print(f"[roofline] {roofline.format_row(row)}", flush=True)
+    shift = [row for row in full["rows"] if row["family"] == "shift_normalize"]
+    if len(shift) != 2 or not all(row["bytes_exact"] for row in shift):
+        fail(f"the trace's shift_normalize rows: {shift}")
+    share = 100 * sum(row["bytes_per_step"] for row in shift) / \
+        (sum(row["ms_per_step"] for row in shift) * 1e-3) / 1e9 / r["hbm_gbps"]
+    bench_share = 100 * low_kernel["bound_ms"] / low_kernel["ms"]
+    exact = [x for x in r["rows"] if x["bytes_exact"]]
+    low = min(exact, key=lambda x: x["roofline_pct"]) if exact else None
+    print(f"[roofline] shift_normalize (both cameras): {share:.1f}% of the memory rate in the "
+          f"profiled step against {bench_share:.1f}% of its bound in (q)'s bench_shift_normalize "
+          f"(tol 10 points); furthest below the memory rate of the top rows with exact bytes: "
+          + (f"{low['kernel'][:60]} [{low['op']}] x{low['execs_per_step']:g} at "
+             f"{low['roofline_pct']:.1f}%" if low else "none")
+          + "; a share above 100% reads data the 50 MB L2 holds", flush=True)
+    if abs(share - bench_share) > 10:
+        fail(f"the roofline's {share:.1f}% and the bench's {bench_share:.1f}% differ by more than "
+             "10 points")
+    return {"paths": {"roofline_profile": {"launches": launches}}, "rows": r["rows"],
+            "shift_share": share, "bench_share": bench_share}
+
+
+def phase_previews(dev: torch.device, card: str) -> None:
+    """(ar) The affordance preview with (ah)'s detector on the card, the token
+    detector's refusal, and the viewers that need imageio where it imports."""
+    from hulc2_torch import kernels
+    from hulc2_torch.tools import visualize_dataset
+
+    lacking = lacking_packages("affordance preview images", "play video", "make_seq_videos")
+    images = not lacking["affordance preview images"]
+    shutil.rmtree(PREVIEW_DIR, ignore_errors=True)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = visualize_dataset.visualize_affordance(AFF_LOW_DATA, str(AFF_LOW_RUN), PREVIEW_DIR,
+                                                     n=16, device=dev, images=images)
+    preview_s = time.perf_counter() - t0
+    pngs = sorted(PREVIEW_DIR.glob("sample_*.png"))
+    if summary is None or json.loads((PREVIEW_DIR / "errors.json").read_text()) != summary \
+            or len(summary["samples"]) != 16 or (images and len(pngs) != 16):
+        fail(f"the affordance preview wrote {summary and len(summary['samples'])} errors and "
+             f"{len(pngs)} images")
+    try:
+        visualize_dataset.visualize_affordance(AFF_DATA, str(AFF_RUN), PREVIEW_DIR / "tokens",
+                                               n=2, device=dev, images=False)
+        fail("the preview took a token detector")
+    except ValueError as exc:
+        refused = str(exc)
+    driven = []
+    if not lacking["play video"]:
+        visualize_dataset.visualize_play(SYN_DATA / "validation", str(PREVIEW_DIR / "play.mp4"),
+                                         limit=60)
+        driven.append("play video")
+    if not lacking["make_seq_videos"]:
+        import imageio.v2 as imageio
+
+        from hulc2_torch.tools import make_seq_videos
+
+        seq = PREVIEW_DIR / "sequence_000"
+        for i, (_, frame) in enumerate(visualize_dataset.iter_play_frames(SYN_DATA / "validation",
+                                                                          end=9)):
+            for cam in ("static", "gripper"):
+                d = seq / "00_open_drawer" / "model_free" / f"{cam}_cam"
+                d.mkdir(parents=True, exist_ok=True)
+                imageio.imwrite(d / f"{i:03d}.png", frame[f"rgb_{cam}"])
+        (seq / "sequence_tasks.txt").write_text("open the drawer\n")
+        video = make_seq_videos.make_sequence_video(seq, fps=5)
+        if not video.is_file():
+            fail("make_seq_videos wrote no video")
+        driven.append(f"make_seq_videos ({video.name})")
+    print(f"[previews] visualize_dataset affordance, (ah)'s rn18_pixel on {dev}: 16 samples, "
+          f"mean px error {summary['mean_px_error']:.1f}, median {summary['median_px_error']:.1f}, "
+          f"mean depth error {summary.get('mean_depth_error', float('nan')):.4f}; {len(pngs)} PNGs; "
+          f"{preview_s:.2f} s; launches {dict(kernels.LAUNCHES)} (the detector's path runs no "
+          f"shift_normalize); the token detector refused: {refused[:100]}...; driven: "
+          f"{driven or 'none'}; not driven: { {d: m for d, m in lacking.items() if m} or 'none'} "
+          f"(packages that do not import here); on {card}", flush=True)
 
 
 def dp_batch(cfg: dict, dev: torch.device) -> dict:
@@ -3142,6 +3425,13 @@ def main() -> int:
     option_paths["callbacks_train"] = phase_callbacks(dev, card)
     dp_paths, dp_kernel, _ = phase_data_parallel(dev, card)
     option_paths.update(dp_paths)
+    syn = phase_dataset_tools(dev, card)
+    option_paths["dataset_tools_train"] = syn
+    flops = phase_flops(dev, card)
+    option_paths.update(flops["paths"])
+    roof = phase_roofline(dev, card, low_kernel)
+    option_paths.update(roof["paths"])
+    phase_previews(dev, card)
 
     entry = {
         "name": "shift_normalize",
@@ -3157,7 +3447,7 @@ def main() -> int:
                            low_kernel["max_abs_err"], real_kernel["dispatch"]["max_abs_err"],
                            *(r["max_abs_err"] for r in preset_kernel.values()),
                            *(r["max_abs_err"] for r in rw_kernel.values()),
-                           dp_kernel["max_abs_err"]),
+                           dp_kernel["max_abs_err"], syn["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -3182,6 +3472,8 @@ def main() -> int:
         "preset_static_launch": preset_kernel,
         "real_world_r3m_launch": rw_kernel,
         "real_env": real_kernel,
+        "cfg_low_level_roofline": {"share_of_memory_rate_pct": roof["shift_share"],
+                                   "bench_share_of_bound_pct": roof["bench_share"]},
         "dp_rank_step": {k: dp_kernel[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "max_abs_err")},
     }
@@ -3193,8 +3485,9 @@ def main() -> int:
           f"and clip presets, real_world_r3m_launch per launch of cfg_low_level_rw's train "
           f"step (static and gripper), real_env per batched dispatch (4 frames of 200 px and of "
           f"84 px) and per serial step (1 of each) at pad 0, dp_rank_step per data-parallel "
-          f"rank's train step (1024 frames of 96 px pad 4 and of 64 px pad 3)",
-          flush=True)
+          f"rank's train step (1024 frames of 96 px pad 4 and of 64 px pad 3), "
+          f"cfg_low_level_roofline the kernel's share of the memory rate in (aq)'s profiled step "
+          f"beside (q)'s share of its bound", flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(card, flush=True)

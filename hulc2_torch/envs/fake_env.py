@@ -1,9 +1,10 @@
 """Interactive symbolic CALVIN env: solvable without PyBullet.
 
 The port's copy of ``hulc2_tpu/envs/fake_env.py`` (numpy only, no torch), held
-equal to it by ``tests/test_torch_port_eval_host.py``. Left out, since nothing
-of the port uses them yet: ``perform(task)`` (dataset tooling), the emulated
-step delay and the non-interactive mode (benchmark tooling).
+equal to it by ``tests/test_torch_port_eval_host.py``. ``perform(task)``
+(the synthetic dataset's task transitions) raises where the JAX package
+asserts. Left out, since nothing of the port uses them: the emulated step
+delay and the non-interactive mode (benchmark tooling).
 
 Role: the integration-test and learning-loop backend (SURVEY.md §4's
 "fake/synthetic backend" gap, extended per VERDICT r3 Missing #1 from an
@@ -35,12 +36,17 @@ import numpy as np
 from hulc2_torch.envs import scene_layout as L
 from hulc2_torch.envs import task_oracle as oz
 from hulc2_torch.evaluation.initial_states import (
+    BLOCK_SLIDER_LEFT,
+    BLOCK_SLIDER_RIGHT,
+    BLOCK_TABLE_SLOTS,
     DRAWER_OPEN,
     NEUTRAL_ROBOT_OBS,
     SLIDER_OPEN_LEFT,
     SWITCH_ON,
 )
 from hulc2_torch.evaluation.tasks import COLORS
+
+_DRAWER_POS = np.array([L.DRAWER_X, -0.40, L.DRAWER_BLOCK_Z])
 
 
 class FakeCalvinEnv:
@@ -264,3 +270,79 @@ class FakeCalvinEnv:
 
     def _bslice(self, color: str) -> slice:
         return slice(6 + 6 * COLORS.index(color), 12 + 6 * COLORS.index(color))
+
+    def perform(self, task: str) -> None:
+        """Mutate scene_obs as if the robot had completed ``task``."""
+        s = self.scene_obs
+        parts = task.split("_")
+        if task == "move_slider_left":
+            s[0] = SLIDER_OPEN_LEFT
+        elif task == "move_slider_right":
+            s[0] = 0.0
+        elif task == "open_drawer":
+            s[1] = DRAWER_OPEN
+        elif task == "close_drawer":
+            s[1] = 0.0
+        elif task in ("turn_on_lightbulb", "turn_off_lightbulb"):
+            s[4] = 1.0 if task == "turn_on_lightbulb" else 0.0
+            s[3] = 0.088 if s[4] else 0.0
+        elif task in ("turn_on_led", "turn_off_led"):
+            s[5] = 1.0 if task == "turn_on_led" else 0.0
+        elif parts[0] == "rotate":
+            sl = self._bslice(parts[1])
+            s[sl.start + 5] += np.pi / 8 if parts[-1] == "left" else -np.pi / 8
+        elif parts[0] == "push" and task != "push_into_drawer":
+            sl = self._bslice(parts[1])
+            s[sl.start] += 0.05 if parts[-1] == "right" else -0.05
+        elif parts[0] == "lift":
+            sl = self._bslice(parts[1])
+            s[sl.start + 2] += 0.10
+            self._held = parts[1]
+        elif task == "place_in_slider":
+            self._require_held(task)
+            sl = self._bslice(self._held)
+            target = BLOCK_SLIDER_LEFT if self.scene_obs[0] > SLIDER_OPEN_LEFT / 2 else BLOCK_SLIDER_RIGHT
+            s[sl.start : sl.start + 3] = target
+            self._held = None
+        elif task == "place_in_drawer":
+            self._require_held(task)
+            sl = self._bslice(self._held)
+            s[sl.start : sl.start + 3] = _DRAWER_POS
+            self._held = None
+        elif task == "push_into_drawer":
+            # push the (unique) table block into the open drawer
+            for c in COLORS:
+                sl = self._bslice(c)
+                if oz._on_table(s[sl.start : sl.start + 3]):
+                    s[sl.start : sl.start + 3] = _DRAWER_POS
+                    break
+            else:
+                raise RuntimeError("no block on the table")
+        elif task == "stack_block":
+            self._require_held(task)
+            top = self._bslice(self._held)
+            for c in COLORS:
+                if c == self._held:
+                    continue
+                bot = self._bslice(c)
+                if abs(s[bot.start + 2] - oz.TABLE_Z) < 0.02:
+                    s[top.start : top.start + 3] = s[bot.start : bot.start + 3] + np.array([0, 0, 0.05])
+                    self._held = None
+                    return
+            raise RuntimeError("no table block to stack onto")
+        elif task == "unstack_block":
+            for t in COLORS:
+                for b in COLORS:
+                    if t == b:
+                        continue
+                    ts, bs = self._bslice(t), self._bslice(b)
+                    if oz._stacked_on(s[ts.start : ts.start + 3], s[bs.start : bs.start + 3]):
+                        s[ts.start : ts.start + 3] = BLOCK_TABLE_SLOTS[0] + np.array([0.05, 0.02, 0])
+                        return
+            raise RuntimeError("nothing stacked")
+        else:
+            raise KeyError(task)
+
+    def _require_held(self, task: str) -> None:
+        if not self._held:
+            raise RuntimeError(f"{task}: no block is held")

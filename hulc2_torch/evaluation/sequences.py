@@ -12,8 +12,8 @@ The reference fans this out over a ProcessPoolExecutor; each state's stream is
 independent (seeded by its index), so we use threads/processes freely without
 changing results.
 
-The port's copy of ``hulc2_tpu/evaluation/sequences.py`` without the
-exhaustive variant; it imports no torch, because its pool workers import it.
+The port's copy of ``hulc2_tpu/evaluation/sequences.py``; it imports no
+torch, because its pool workers import it.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from hulc2_torch.evaluation.tasks import TASK_NAMES, is_chain_valid
+from hulc2_torch.evaluation.tasks import TASK_CATEGORIES, TASK_NAMES, is_chain_valid, successor_states
 
 CHAIN_LEN = 5
 
@@ -168,3 +168,28 @@ def _chains_sequential(jobs) -> List[List[np.ndarray]]:
     chunks = [_chains_for_state(a) for a in jobs]
     np.random.set_state(saved)
     return chunks
+
+
+def exhaustive_sequences_for_state(state: Dict, num_sequences: int = None) -> List[Tuple[str, ...]]:
+    """Every valid 5-chain from ``state``, breadth first, then a permutation
+    seeded with ``temp_seed(0)`` that keeps chains of five distinct task
+    categories and drops chains with the task set of an earlier one: the
+    reference's exhaustive variant (multistep_sequences.py:292-321), in the
+    JAX package's order."""
+    frontier = [((), dict(state))]
+    with temp_seed(0):
+        for _ in range(CHAIN_LEN):
+            nxt = []
+            for chain, st in frontier:
+                for name in TASK_NAMES:
+                    for ns in successor_states(st, name):
+                        nxt.append((chain + (name,), ns))
+            frontier = nxt
+        results, seen = [], []
+        for idx in np.random.permutation(len(frontier)):
+            chain = frontier[idx][0]
+            cats = [TASK_CATEGORIES[n] for n in chain]
+            if len(cats) == len(set(cats)) and set(chain) not in seen:
+                results.append(chain)
+                seen.append(set(chain))
+    return results[:num_sequences] if num_sequences else results

@@ -9,6 +9,7 @@ version below. There is no fallback from the one to the other.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -280,6 +281,20 @@ def _launch_fn():
     return fn
 
 
+SPAN = "shift_normalize"
+
+
+def _launch_span(n: int, h: int, w: int, out_dtype: torch.dtype):
+    """While ``torch.profiler`` records, a span named by the launch's shape
+    (``shift_normalize n=N h=H w=W out=bfloat16``) around it, which
+    ``tools/roofline.py`` reads: the ctypes launch has no aten op whose
+    shapes the profiler would record. Nothing otherwise."""
+    if not torch._C._autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(
+        f"{SPAN} n={n} h={h} w={w} out={str(out_dtype).replace('torch.', '')}")
+
+
 def random_shift_normalize(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, mean: Stat,
                            std: Stat, out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Fused RandomShift crop + scale/normalize: (N, H, W, 3) uint8 -> (N, H, W, 3)
@@ -296,7 +311,7 @@ def random_shift_normalize(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, 
     scale_c, shift_c = _affine_c(_stat_key(mean), _stat_key(std), c)
     out = torch.empty((n, h, w, c), dtype=out_dtype, device=imgs.device)
     fn = _launch_fn()
-    with torch.cuda.device(imgs.device):
+    with torch.cuda.device(imgs.device), _launch_span(n, h, w, out_dtype):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         err = fn(imgs.data_ptr(), offsets.data_ptr(), out.data_ptr(),
                  int(out_dtype == torch.bfloat16), n, h, w, pad, tiling.band_rows,

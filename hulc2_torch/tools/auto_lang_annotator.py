@@ -1,10 +1,17 @@
 """Automatic language annotation of play data (``hulc2_tpu/tools/auto_lang_annotator.py``).
 
-The port's numpy copy of ``detect_task_windows``, ``annotate_dataset`` and
-``hash_embed``, the part the dataset generator runs, and of the
-``require_stub_embeddings_ok`` gate; relabelling, the task
-statistics CLI and the external sentence encoders are not ported, and
-``annotate_dataset`` takes its embedding function explicitly.
+    python -m hulc2_torch.tools.auto_lang_annotator DATA_DIR [--lang-model DIR] [--device cpu]
+        [--relabel [--resample] [--dst-folder F]] [--stats] [--window 64] [--stride 16]
+
+The port's copy: ``detect_task_windows``, ``annotate_dataset`` (which takes
+its embedding function explicitly), ``relabel_dataset`` (the reference's
+relabel_with_new_lang_model.py), ``dataset_task_statistics`` (its
+dataset_task_statistics.py), ``hash_embed`` and the
+``require_stub_embeddings_ok`` gate, numpy only. ``--lang-model`` embeds with
+``models.language.SBertEncoder`` (a local HuggingFace directory), on the card
+unless ``--device cpu``; without it the CLI falls back to ``hash_embed``
+behind the gate, as the JAX package's does. Other encoders reach
+``relabel_dataset`` through its ``embed_fn``.
 
 Counterpart of the reference's annotator pipeline
 (reference: hulc2/utils/automatic_lang_annotator_mp.py:29-120,
@@ -17,9 +24,11 @@ evaluation/utils.py:88-96).
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
+import logging
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -28,6 +37,8 @@ from hulc2_torch.data.frame_store import NpzFrameStore
 from hulc2_torch.envs.task_oracle import SceneObsTaskOracle
 from hulc2_torch.evaluation.tasks import TASK_NAMES
 from hulc2_torch.tools.annotations import VALIDATION_BANK, sample_annotation
+
+logger = logging.getLogger(__name__)
 
 
 def detect_task_windows(
@@ -189,3 +200,101 @@ def require_stub_embeddings_ok(context: str) -> None:
             "from stub embeddings are meaningless. Provide an embeddings "
             "table (embeddings.npy / --lang-model), or set "
             "HULC2_ALLOW_STUB_EMBEDDINGS=1 to proceed knowingly (tests/smoke).")
+
+
+def relabel_dataset(
+    data_dir,
+    src_folder: str = "lang_annotations",
+    dst_folder: str = "lang_annotations_relabeled",
+    embed_fn: Optional[Callable[[List[str]], np.ndarray]] = None,
+    resample: bool = False,
+    seed: int = 0,
+) -> dict:
+    """Embed an existing ``auto_lang_ann.npy`` anew, and with ``resample``
+    draw its sentences anew from the bank, without replaying the data
+    (reference: hulc2/utils/relabel_with_new_lang_model.py:12-21). Writes
+    ``<data_dir>/<dst_folder>/auto_lang_ann.npy`` and ``embeddings.npy``
+    (each task's canonical sentence). Without ``embed_fn``, ``hash_embed``
+    behind ``require_stub_embeddings_ok``'s gate."""
+    data_dir = Path(data_dir)
+    split = data_dir.name if data_dir.name in ("training", "validation") else "training"
+    src = np.load(data_dir / src_folder / "auto_lang_ann.npy", allow_pickle=True).item()
+    tasks = list(src["language"]["task"])
+    if resample:
+        rng = np.random.default_rng(seed)
+        anns = [sample_annotation(t, rng, validation=split == "validation") for t in tasks]
+    else:
+        anns = list(src["language"]["ann"])
+    if embed_fn is None:
+        require_stub_embeddings_ok("relabel_dataset")
+        embed_fn = hash_embed
+    embs = np.asarray(embed_fn(anns), np.float32)[:, None, :]
+    lang_data = {
+        "language": {"ann": anns, "task": tasks, "emb": embs},
+        "info": dict(src["info"]),
+    }
+    out = data_dir / dst_folder
+    out.mkdir(parents=True, exist_ok=True)
+    np.save(out / "auto_lang_ann.npy", lang_data)
+    emb_lookup = {
+        t: {"ann": [s], "emb": np.asarray(embed_fn([s]), np.float32)}
+        for t, s in ((t, VALIDATION_BANK[t]) for t in TASK_NAMES)
+    }
+    np.save(out / "embeddings.npy", emb_lookup)
+    return lang_data
+
+
+def dataset_task_statistics(data_dir, window: int = 64, stride: int = 16) -> Dict[str, int]:
+    """Windows per task that the scene-obs oracle finds in a play dataset,
+    most frequent first (reference: hulc2/utils/dataset_task_statistics.py:12-25,
+    which replays each episode in the simulator)."""
+    data_dir = Path(data_dir)
+    split = data_dir.name if data_dir.name in ("training", "validation") else "training"
+    ep_ids = load_ep_start_end_ids(data_dir, split)
+    store = NpzFrameStore(data_dir, ["scene_obs"])
+    hits = detect_task_windows(store, ep_ids, window, stride)
+    counts: Dict[str, int] = {}
+    for h in hits:
+        counts[h["task"]] = counts.get(h["task"], 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("data_dir")
+    p.add_argument("--lang-folder", default="lang_annotations")
+    p.add_argument("--window", type=int, default=64)
+    p.add_argument("--stride", type=int, default=16)
+    p.add_argument("--lang-model", default=None,
+                   help="a local sentence-transformers directory; hash stub if omitted")
+    p.add_argument("--device", default=None, help="--lang-model's device (default: the card)")
+    p.add_argument("--relabel", action="store_true",
+                   help="embed the --lang-folder annotations anew into --dst-folder")
+    p.add_argument("--dst-folder", default="lang_annotations_relabeled")
+    p.add_argument("--resample", action="store_true",
+                   help="with --relabel: draw the sentences anew from the bank")
+    p.add_argument("--stats", action="store_true", help="only print the windows per task")
+    args = p.parse_args(argv)
+    if args.stats:
+        for task, n in dataset_task_statistics(args.data_dir, args.window, args.stride).items():
+            print(f"{task}: {n}")
+        return
+    embed_fn = None
+    if args.lang_model:
+        from hulc2_torch.models.language import SBertEncoder
+
+        embed_fn = SBertEncoder(args.lang_model, device=args.device)
+    if args.relabel:
+        relabel_dataset(args.data_dir, args.lang_folder, args.dst_folder, embed_fn,
+                        resample=args.resample)
+        return
+    if embed_fn is None:
+        require_stub_embeddings_ok("auto_lang_annotator")
+        embed_fn = hash_embed
+    annotate_dataset(args.data_dir, embed_fn, args.lang_folder, args.window, args.stride)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -120,12 +120,19 @@ def make_sets(n: int, hw: int, pad: int, count: int, dev: torch.device, seed: in
             for _ in range(count)]
 
 
+def launch_bytes(n: int, hw: int, out_bytes: int, w: Optional[int] = None) -> int:
+    """Bytes one launch on (n, hw, w or hw, 3) uint8 frames must move: each
+    input byte (frames and int32 offsets) read once, each output element
+    written once."""
+    return n * hw * (w or hw) * 3 * (1 + out_bytes) + n * 2 * 4
+
+
 def bound(n: int, hw: int, out_bytes: int, w: Optional[int] = None) -> Tuple[float, str]:
     """(ms, what bounds it) for one launch of (n, hw, w or hw, 3) frames:
-    each input byte read once, each output element written once, 2 fp32
-    flops per element."""
+    ``launch_bytes`` over the memory rate, 2 fp32 flops per element over the
+    fp32 rate."""
     elems = n * hw * (w or hw) * 3
-    t_bytes = (elems * (1 + out_bytes) + n * 2 * 4) / HBM_BYTES_PER_S * 1e3
+    t_bytes = launch_bytes(n, hw, out_bytes, w) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * elems / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 

@@ -178,6 +178,31 @@ def _timed_steps(run, n: int) -> List[float]:
     return times
 
 
+def profile_steps(run, n: int, record_shapes: bool = False) -> tuple:
+    """``n`` steps of ``run`` under ``torch.profiler``, their batches made
+    before it; returns (the profile, the wall ms per step under it, the
+    device activities, the device-busy ms per step: the union of their
+    intervals). ``record_shapes`` records each op's input shapes, which
+    ``tools/roofline.py`` reads from the exported trace."""
+    batches = [run.next_batch() for _ in range(n)]
+    torch.cuda.synchronize(run.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
+        t0 = time.perf_counter()
+        for raw in batches:
+            run.step(raw)
+        torch.cuda.synchronize(run.device)
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / n
+    # device activity: kernels, memcpys and memsets; not the device-side spans
+    # of user annotations such as "Optimizer.step#Adam.step"
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / n
+    return prof, profiled_ms, kernels, busy_ms
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -212,25 +237,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     plain_ms = statistics.median(_timed_steps(run, args.steps))
     wait_ms = statistics.median(run.wait_ms[-args.steps:]) if args.data else None
 
-    batches = [run.next_batch() for _ in range(args.steps)]
-    torch.cuda.synchronize(run.device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for raw in batches:
-            run.step(raw)
-        torch.cuda.synchronize(run.device)
-        profiled_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    prof, profiled_ms, kernels, busy_ms = profile_steps(run, args.steps, record_shapes=bool(args.trace))
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    # device activity: kernels, memcpys and memsets; not the device-side spans
-    # of user annotations such as "Optimizer.step#Adam.step"
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device activity")
-    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
-    busy_ms = _union_us(spans) / 1e3 / args.steps
     by_name: Dict[str, List[float]] = defaultdict(list)
     for e in kernels:
         by_name[e.name].append(e.time_range.elapsed_us())
