@@ -120,6 +120,7 @@ def annotate_dataset(
     with_embeddings_lookup: bool = True,
     canonical: bool = False,
     holdout_k: int = 0,
+    align_end: bool = True,
 ) -> dict:
     """Write <data_dir>/<lang_folder>/auto_lang_ann.npy (+ embeddings.npy).
 
@@ -128,12 +129,13 @@ def annotate_dataset(
     maps sentences to float embeddings. ``holdout_k`` excludes the last K
     paraphrases of every task from sampling (``heldout_annotations``).
     Validation splits (and ``canonical``) use the one phrasing per task of
-    ``VALIDATION_BANK``."""
+    ``VALIDATION_BANK``. ``align_end=False`` keeps every window in which
+    exactly one task completes, unaligned (``detect_task_windows``)."""
     data_dir = Path(data_dir)
     split = data_dir.name if data_dir.name in ("training", "validation") else "training"
     ep_ids = load_ep_start_end_ids(data_dir, split)
     store = NpzFrameStore(data_dir, ["scene_obs"])
-    hits = detect_task_windows(store, ep_ids, window, stride)
+    hits = detect_task_windows(store, ep_ids, window, stride, align_end=align_end)
 
     rng = np.random.default_rng(seed)
     anns = [sample_annotation(h["task"], rng, validation=canonical or split == "validation",

@@ -232,6 +232,79 @@ def test_expert_dataset_equals_jax(tmp_path):
             assert got.read_bytes() == want.read_bytes(), f
 
 
+def _generate_with_16_frame_chunks(tmp_path, monkeypatch, cpus: int) -> list:
+    """Generate one small dataset with 256-frame chunks (too few for a pool)
+    and again with 16-frame chunks, ``cpus`` CPUs seen; check every file is
+    byte-equal; return the worker counts of the pools started."""
+    from hulc2_torch.tools import make_expert_dataset as med
+
+    started = []
+    real_pool = med._RenderPool
+    monkeypatch.setattr(med, "_RenderPool", lambda workers: started.append(workers) or
+                        real_pool(workers))
+    monkeypatch.setattr(os, "cpu_count", lambda: cpus)
+    kw = dict(episodes=3, tasks_per_episode=2, val_episodes=1, val_tasks_per_episode=1,
+              static_hw=32, gripper_hw=32, seed=0, lang_tokens=True, holdout_paraphrases=4)
+    make_expert_dataset(tmp_path / "serial", **kw)
+    assert started == []
+    monkeypatch.setattr(med._FrameWriter, "CHUNK", 16)
+    make_expert_dataset(tmp_path / "chunks", **kw)
+    files = sorted(p.relative_to(tmp_path / "serial") for p in (tmp_path / "serial").rglob("*")
+                   if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "chunks")
+                           for p in (tmp_path / "chunks").rglob("*") if p.is_file())
+    assert sum(f.suffix == ".npz" for f in files) > (med._FrameWriter.POOL_MIN_CHUNKS + 2) * 16
+    for f in files:
+        assert (tmp_path / "chunks" / f).read_bytes() == (tmp_path / "serial" / f).read_bytes(), f
+    return started
+
+
+def test_expert_dataset_render_workers_write_the_same_files(tmp_path, monkeypatch):
+    """Once an episode shows ``POOL_MIN_CHUNKS`` chunks of frames left in its
+    split, a pool of one worker process for every CPU but the expert's
+    renders and saves them while the expert runs on (how the round-5 run
+    generates 263k frames in minutes); the files are the ones the generator
+    writes in one process, byte for byte. A split of fewer chunks starts no
+    pool."""
+    assert _generate_with_16_frame_chunks(tmp_path, monkeypatch, cpus=3) == [2]
+
+
+def test_expert_dataset_stays_in_process_on_one_cpu(tmp_path, monkeypatch):
+    """With one CPU the generator starts no pool, however many chunks are
+    left, and writes the same files."""
+    assert _generate_with_16_frame_chunks(tmp_path, monkeypatch, cpus=1) == []
+
+
+def test_unaligned_lang_windows_equal_jax_before_alignment(tmp_path, monkeypatch):
+    """``--unaligned-lang-windows`` annotates as the JAX package did before it
+    aligned its windows to end at the task's completion, which is how the
+    round-5 flagship dataset was annotated (its 10,065 windows; the aligned
+    annotator finds 3,124 in the same frames): the port's annotations equal
+    JAX's ``annotate_dataset`` with ``detect_task_windows(align_end=False)``,
+    and there are more of them than aligned ones."""
+    import functools
+
+    from hulc2_tpu.tools import auto_lang_annotator as jann
+
+    kw = dict(episodes=1, tasks_per_episode=8, val_episodes=0, seed=0, lang_tokens=True,
+              holdout_paraphrases=4)
+    make_expert_dataset(tmp_path, align_lang_windows=False, **kw)
+    d = tmp_path / "training"
+    monkeypatch.setattr(jann, "detect_task_windows",
+                        functools.partial(jann.detect_task_windows, align_end=False))
+    want = jann.annotate_dataset(d, lang_folder="jax", window=64, stride=8, embed_fn="tokens",
+                                 seed=0, holdout_k=4)
+    got = np.load(d / "lang_annotations" / "auto_lang_ann.npy", allow_pickle=True).item()
+    assert got["info"] == want["info"]
+    assert got["language"]["ann"] == want["language"]["ann"]
+    assert got["language"]["task"] == want["language"]["task"]
+    np.testing.assert_array_equal(got["language"]["emb"], want["language"]["emb"])
+    monkeypatch.undo()
+    aligned = jann.annotate_dataset(d, lang_folder="aligned", window=64, stride=8,
+                                    embed_fn="tokens", seed=0, holdout_k=4)
+    assert len(got["language"]["ann"]) > len(aligned["language"]["ann"]) > 0
+
+
 def test_device_gather_equals_jax_fused_loader(calvin_dir):
     """The device-store loader (here on the CPU) against the JAX package's
     host FusedBatchLoader over two epochs: every key, dtype and value; then
