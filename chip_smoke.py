@@ -2969,7 +2969,8 @@ def phase_roofline(dev: torch.device, card: str, low_kernel: dict) -> dict:
                         "--warmup", "3", "--trace", str(TRACE)])
     torch.cuda.synchronize(dev)
     launches = dict(kernels.LAUNCHES)
-    want = 2 * (3 + 2 * PROFILE_STEPS)
+    # the warm-up, the timed steps, the profiled steps and the phase table's slice
+    want = 2 * (3 + 3 * PROFILE_STEPS)
     if launches["shift_normalize"] != want:
         fail(f"profile_train launched shift_normalize {launches['shift_normalize']} times, "
              f"expected {want}")

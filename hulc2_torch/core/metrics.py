@@ -6,9 +6,9 @@ their prefix) and, when asked, fans the same scalars out to a tensorboard
 ``SummaryWriter`` under ``<run_dir>/tb`` and to wandb. Each optional sink is
 imported when the logger is made; a sink whose package does not import is
 skipped with a warning, as in JAX (``:73-79``). In a data-parallel run only
-the main process writes. ``get_git_commit_hash``, ``timeit`` and
+the main process writes. ``get_git_commit_hash`` and
 ``print_system_env_info`` are the banners the trainer logs at start; the
-last names torch, CUDA, the device and the process's rank and world size in
+second names torch, CUDA, the device and the process's rank and world size in
 place of JAX's backend fields.
 """
 from __future__ import annotations
@@ -18,9 +18,8 @@ import logging
 import platform
 import subprocess
 import time
-from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 logger = logging.getLogger(__name__)
 
@@ -60,17 +59,6 @@ def print_system_env_info(device=None) -> Dict[str, str]:
     for line in sorted(f"{k}: {v}" for k, v in info.items()):
         logger.info(line)
     return info
-
-
-@contextmanager
-def timeit(name: str, sink: Optional[dict] = None):
-    """Wall-clock time of the block, logged and stored in ``sink[name]``."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if sink is not None:
-        sink[name] = dt
-    logger.info("%s took %.4f s", name, dt)
 
 
 def _without_tensorflow() -> None:

@@ -26,6 +26,7 @@ from typing import Dict, Iterator, Sequence
 import numpy as np
 import torch
 
+from hulc2_torch.core import trace
 from hulc2_torch.data.frame_store import RamFrameStore
 from hulc2_torch.data.loader import fused_orders
 from hulc2_torch.data.window_dataset import WindowDataset
@@ -73,7 +74,10 @@ class DeviceGatherFusedLoader:
     [``scene_obs``] for all rows, ``lang``, ``use_for_aux_lang_loss`` and ``lang_task_id`` for
     the lang rows. ``DevicePrefetcher`` copies the small keys up. In a
     data-parallel run each process takes its ``process_shard`` of both orders
-    (``hulc2_tpu/data/device_store.py:121-134``)."""
+    (``hulc2_tpu/data/device_store.py:121-134``). While tracing is on
+    (``core/trace``), a batch's host plan is the span ``store.plan_rows`` and
+    its gather (the index's pinning and upload, the ``index_select``
+    launches) ``store.gather``."""
 
     def __init__(self, vis_dataset: WindowDataset, lang_dataset: WindowDataset,
                  dev_store: DeviceFrameStore, batch_size_vis: int, batch_size_lang: int,
@@ -151,9 +155,11 @@ class DeviceGatherFusedLoader:
         if self.vis.with_scene:
             small["scene_obs"] = np.empty((b, self.S, ram.arrays["scene_obs"].shape[-1]),
                                           np.float32)
-        self._plan_rows(self.vis, vis_idxs, epoch, rows, 0, small)
-        self._plan_rows(self.lang, lang_idxs, epoch, rows, self.bv, small)
-        batch: Dict[str, object] = dict(self.store.gather(rows))
+        with trace.span("store.plan_rows"):
+            self._plan_rows(self.vis, vis_idxs, epoch, rows, 0, small)
+            self._plan_rows(self.lang, lang_idxs, epoch, rows, self.bv, small)
+        with trace.span("store.gather"):
+            batch: Dict[str, object] = dict(self.store.gather(rows))
         batch.update(small)
         return batch
 

@@ -19,6 +19,7 @@ is not ported.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import queue
 import threading
@@ -30,6 +31,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from hulc2_torch.core import trace
 from hulc2_torch.data.window_dataset import WindowDataset
 
 
@@ -362,14 +364,28 @@ class DevicePrefetcher:
     read it. A ``PinnedBatch`` is released with that event, the one that
     follows its copy. ``wait_s`` sums the seconds the consumer spent blocked
     on the queue. ``close`` also closes the stream (the loader's generator),
-    so that its worker threads stop."""
+    so that its worker threads stop.
+
+    While tracing is on (``core/trace``) the thread records a
+    ``prefetch.produce`` span per batch, tagged with the prefetcher's id and
+    the batch's sequence number, around the stream's next batch (the device
+    store's ``store.plan_rows`` and ``store.gather`` among it),
+    ``prefetch.to_device`` and ``prefetch.put`` (blocked on a full queue), and
+    the counter ``prefetch.pinned_allocs``; ``__next__`` records
+    ``prefetch.next``, tagged with the id and the number of the batch it hands
+    out, around ``prefetch.queue_get`` and ``prefetch.handoff`` (the event
+    wait and ``record_stream``)."""
+
+    _ids = itertools.count()
 
     def __init__(self, iterator, device, prefetch: int = 2):
+        self.id = next(self._ids)  # tags the spans of its batches
         self.device = torch.device(device)
         self.it = iter(iterator)
         self.q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.wait_s = 0.0
+        self.taken = 0  # batches handed out: the next one's sequence number
         self._done = object()
         self._stopped = threading.Event()
         self.thread = threading.Thread(target=self._worker, daemon=True)
@@ -389,17 +405,25 @@ class DevicePrefetcher:
         ctx = torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
         try:
             with ctx:
-                for host in self.it:
-                    if self._stopped.is_set():
-                        return
-                    batch = to_device(host, self.device)
-                    event = None
-                    if self.stream is not None:
-                        event = torch.cuda.Event()
-                        event.record(self.stream)
-                    if isinstance(host, PinnedBatch):
-                        host.release(event)
-                    if not self._put((batch, event)):
+                for seq in itertools.count():
+                    with trace.span("prefetch.produce", prefetcher=self.id, batch=seq), \
+                            trace.device_counts(self.device, pinned="prefetch.pinned_allocs"):
+                        host = next(self.it, self._done)
+                        if host is self._done:
+                            break
+                        if self._stopped.is_set():
+                            return
+                        with trace.span("prefetch.to_device"):
+                            batch = to_device(host, self.device)
+                        event = None
+                        if self.stream is not None:
+                            event = torch.cuda.Event()
+                            event.record(self.stream)
+                        if isinstance(host, PinnedBatch):
+                            host.release(event)
+                        with trace.span("prefetch.put"):
+                            queued = self._put((batch, event))
+                    if not queued:
                         return
         except BaseException as e:  # handed to the consumer, which raises it
             self._put(e)
@@ -410,20 +434,24 @@ class DevicePrefetcher:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        t0 = time.perf_counter()
-        item = self.q.get()
-        self.wait_s += time.perf_counter() - t0
-        if item is self._done:
-            raise StopIteration
-        if isinstance(item, BaseException):
-            raise item
-        batch, event = item
-        if event is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(event)
-            for t in tensors(batch):
-                t.record_stream(stream)
-        return batch
+        with trace.span("prefetch.next", prefetcher=self.id, batch=self.taken):
+            self.taken += 1
+            t0 = time.perf_counter()
+            with trace.span("prefetch.queue_get"):
+                item = self.q.get()
+            self.wait_s += time.perf_counter() - t0
+            if item is self._done:
+                raise StopIteration
+            if isinstance(item, BaseException):
+                raise item
+            batch, event = item
+            with trace.span("prefetch.handoff"):
+                if event is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(event)
+                    for t in tensors(batch):
+                        t.record_stream(stream)
+            return batch
 
     def close(self, timeout: float = 60.0) -> None:
         """Stop the thread (an early end of the epoch): mark it stopped, drain

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hulc2_torch.core import trace
 from hulc2_torch.models.decoders import DecoderOutput, DeterministicDecoder, Hidden
 from hulc2_torch.models.distributions import DiscretePlanDistribution
 from hulc2_torch.models.goal_encoders import (LanguageEncoderMLP, LanguageGoalEncoder,
@@ -148,7 +149,12 @@ class Hulc2(nn.Module):
         ``lang``) or only lang rows (``n_vis`` 0), and only that modality's
         metrics, as JAX's ``mods``. ``gumbel`` replaces the plan sampler's
         draw: Gumbel noise (B, categories, classes) for discrete plans,
-        standard normal (B, plan_features) for continuous ones."""
+        standard normal (B, plan_features) for continuous ones. Its parts are
+        spans of ``core/trace`` while tracing is on: ``model.encode`` (the
+        perceptual encoder), ``model.encode_lang`` (the language tower and the
+        goals), ``model.plan`` (proposal, recognition, the sample, the KL),
+        ``model.decode`` (the decoder and the action loss) and ``model.aux``
+        (the CLIP, aux and task heads)."""
         dec = self._decoder()
         actions, robot_obs_raw = batch["actions"], batch["robot_obs_raw"]
         has_lang = "lang" in batch
@@ -156,33 +162,39 @@ class Hulc2(nn.Module):
         if has_lang:
             splits["lang"] = (n_vis, actions.shape[0])
 
-        emb = self.encode(batch, deterministic, generator)
-        lang_emb = self.encode_lang(batch["lang"], deterministic, generator) if has_lang else None
-        latent_goal = self.encode_goals(emb, lang_emb, n_vis, deterministic, generator)
+        with trace.span("model.encode"):
+            emb = self.encode(batch, deterministic, generator)
+        with trace.span("model.encode_lang"):
+            lang_emb = (self.encode_lang(batch["lang"], deterministic, generator) if has_lang
+                        else None)
+            latent_goal = self.encode_goals(emb, lang_emb, n_vis, deterministic, generator)
 
-        pp_state = self.plan_proposal(emb[:, 0], latent_goal)
-        pr_state, seq_feat = self.plan_recognition(emb, deterministic, generator)
-        plan = self._plan(pr_state, gumbel, generator, rsample=True)
-        kl = (self.balanced_kl_per_sample(pp_state, pr_state) if self.use_plan
-              else pr_state.new_zeros(pr_state.shape[0]))
+        with trace.span("model.plan"):
+            pp_state = self.plan_proposal(emb[:, 0], latent_goal)
+            pr_state, seq_feat = self.plan_recognition(emb, deterministic, generator)
+            plan = self._plan(pr_state, gumbel, generator, rsample=True)
+            kl = (self.balanced_kl_per_sample(pp_state, pr_state) if self.use_plan
+                  else pr_state.new_zeros(pr_state.shape[0]))
 
-        dec_out = dec(plan, emb, latent_goal)
-        act = self.action_loss_per_sample(dec_out, actions, robot_obs_raw)
+        with trace.span("model.decode"):
+            dec_out = dec(plan, emb, latent_goal)
+            act = self.action_loss_per_sample(dec_out, actions, robot_obs_raw)
+            metrics: Dict[str, torch.Tensor] = {}
+            for m, (lo, hi) in splits.items():
+                metrics[f"kl_loss_{m}"] = kl_beta * kl[lo:hi].mean()
+                metrics[f"action_loss_{m}"] = act[lo:hi].mean()
+            kl_loss = sum(metrics[f"kl_loss_{m}"] for m in splits) / len(splits)
+            action_loss = sum(metrics[f"action_loss_{m}"] for m in splits) / len(splits)
 
-        metrics: Dict[str, torch.Tensor] = {}
-        for m, (lo, hi) in splits.items():
-            metrics[f"kl_loss_{m}"] = kl_beta * kl[lo:hi].mean()
-            metrics[f"action_loss_{m}"] = act[lo:hi].mean()
-        kl_loss = sum(metrics[f"kl_loss_{m}"] for m in splits) / len(splits)
-        action_loss = sum(metrics[f"action_loss_{m}"] for m in splits) / len(splits)
-        aux_mask = batch.get("use_for_aux_lang_loss")
-        if self.use_clip_auxiliary_loss and has_lang:
-            metrics["lang_clip_loss"] = self.clip_auxiliary_loss(
-                seq_feat[n_vis:], latent_goal[n_vis:], aux_mask)
-        metrics.update(self.aux_metrics(emb, batch["robot_obs"], seq_feat[n_vis:], lang_emb,
-                                        aux_mask))
-        if self.lang_task_head is not None and has_lang and "lang_task_id" in batch:
-            metrics.update(self.lang_task_metrics(lang_emb, batch["lang_task_id"]))
+        with trace.span("model.aux"):
+            aux_mask = batch.get("use_for_aux_lang_loss")
+            if self.use_clip_auxiliary_loss and has_lang:
+                metrics["lang_clip_loss"] = self.clip_auxiliary_loss(
+                    seq_feat[n_vis:], latent_goal[n_vis:], aux_mask)
+            metrics.update(self.aux_metrics(emb, batch["robot_obs"], seq_feat[n_vis:], lang_emb,
+                                            aux_mask))
+            if self.lang_task_head is not None and has_lang and "lang_task_id" in batch:
+                metrics.update(self.lang_task_metrics(lang_emb, batch["lang_task_id"]))
         metrics.update(kl_loss=kl_loss, action_loss=action_loss, total_loss=kl_loss + action_loss)
         return metrics
 

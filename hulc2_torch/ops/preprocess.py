@@ -9,7 +9,6 @@ version below. There is no fallback from the one to the other.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -18,6 +17,7 @@ from typing import NamedTuple, Sequence, Tuple, Union
 import torch
 
 from hulc2_torch import kernels
+from hulc2_torch.core import trace
 from hulc2_torch.kernels import build
 
 Stat = Union[float, Sequence[float]]
@@ -281,18 +281,7 @@ def _launch_fn():
     return fn
 
 
-SPAN = "shift_normalize"
-
-
-def _launch_span(n: int, h: int, w: int, out_dtype: torch.dtype):
-    """While ``torch.profiler`` records, a span named by the launch's shape
-    (``shift_normalize n=N h=H w=W out=bfloat16``) around it, which
-    ``tools/roofline.py`` reads: the ctypes launch has no aten op whose
-    shapes the profiler would record. Nothing otherwise."""
-    if not torch._C._autograd._profiler_enabled():
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(
-        f"{SPAN} n={n} h={h} w={w} out={str(out_dtype).replace('torch.', '')}")
+SPAN = "shift_normalize"  # the launch's span: ``SPAN n=N h=H w=W out=bfloat16`` while traced
 
 
 def random_shift_normalize(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, mean: Stat,
@@ -311,7 +300,10 @@ def random_shift_normalize(imgs: torch.Tensor, offsets: torch.Tensor, pad: int, 
     scale_c, shift_c = _affine_c(_stat_key(mean), _stat_key(std), c)
     out = torch.empty((n, h, w, c), dtype=out_dtype, device=imgs.device)
     fn = _launch_fn()
-    with torch.cuda.device(imgs.device), _launch_span(n, h, w, out_dtype):
+    # the ctypes launch has no aten op whose shapes the profiler would record:
+    # its span's label carries them, which ``tools/roofline.py`` reads
+    with torch.cuda.device(imgs.device), trace.span(SPAN, n=n, h=h, w=w,
+                                                    out=str(out_dtype).replace("torch.", "")):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         err = fn(imgs.data_ptr(), offsets.data_ptr(), out.data_ptr(),
                  int(out_dtype == torch.bfloat16), n, h, w, pad, tiling.band_rows,

@@ -8,6 +8,12 @@ aux betas, backward through autograd, the gradients clipped by their global
 norm where the config asks for it, and one optimizer update at the
 schedule's learning rate. Returns the metrics, ``loss`` and ``grad_norm``
 (before clipping, as in JAX) included, as detached tensors on the device.
+Its phases are spans of ``core/trace``, recorded while tracing is on:
+``train.step`` (with its call count) holds ``train.forward`` (the transform,
+``train.transform``, the model and the loss sum), ``train.backward`` and
+``train.optimizer`` (``train.grad_norm``: the norm and the clip;
+``train.adam``: the update and the schedule), and on the card the counters
+``train.host_syncs`` and ``train.device_mallocs``.
 
 Rollout steps (``:146``, ``:178``): one call per env step for a batch of envs,
 under ``torch.inference_mode()``: [render the frames (and depth_static) from
@@ -24,6 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from hulc2_torch.core import trace
 from hulc2_torch.data.device_transforms import LANG_KEYS
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
 from hulc2_torch.parallel import batch_shard
@@ -80,9 +87,18 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transfor
     world = dist.get_world_size() if model is not core or _sharded(model) else 1
     rank = dist.get_rank() if world > 1 else 0
 
+    calls = 0
+
     def step(raw_batch: Dict, generator: torch.Generator,
              kl_beta: float, gumbel: Optional[torch.Tensor] = None,
              draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        nonlocal calls
+        calls += 1
+        with trace.span("train.step", step=calls), trace.device_counts(
+                device, syncs="train.host_syncs", mallocs="train.device_mallocs"):
+            return step_body(raw_batch, generator, kl_beta, gumbel, draws)
+
+    def step_body(raw_batch, generator, kl_beta, gumbel, draws):
         if "actions" in raw_batch:  # fused on the host or by the store's gather
             fused = raw_batch
             n_vis = fused["actions"].shape[0] - fused["lang"].shape[0]
@@ -98,33 +114,40 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transfor
         shard = (BatchShard(rank, world, n_vis, fused["actions"].shape[0] - n_vis)
                  if world > 1 else None)
         model.train()
-        with batch_shard.active(shard):
-            batch = transform(fused, generator, draws)
-            with torch.autocast(device_type=device.type, dtype=torch.bfloat16,
-                                enabled=use_autocast):
-                metrics = model(batch, kl_beta, n_vis, deterministic=False, generator=generator,
-                                gumbel=gumbel)
-        loss = metrics["total_loss"]
-        if "lang_clip_loss" in metrics:
-            loss = loss + clip_loss_beta * metrics["lang_clip_loss"]
-        for key, beta in aux_betas.items():
-            if key in metrics:
-                loss = loss + beta * metrics[key]
-        metrics["loss"] = loss
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if zero_fill:
-            for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params if p.grad is not None]
-        metrics["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(_full(g).float()) for g in grads]))
-        if gradient_clip_norm:
-            clip_gradients_([_local(g) for g in grads], metrics["grad_norm"], gradient_clip_norm)
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with trace.span("train.forward"):
+            with batch_shard.active(shard):
+                with trace.span("train.transform"):
+                    batch = transform(fused, generator, draws)
+                with torch.autocast(device_type=device.type, dtype=torch.bfloat16,
+                                    enabled=use_autocast):
+                    metrics = model(batch, kl_beta, n_vis, deterministic=False,
+                                    generator=generator, gumbel=gumbel)
+            loss = metrics["total_loss"]
+            if "lang_clip_loss" in metrics:
+                loss = loss + clip_loss_beta * metrics["lang_clip_loss"]
+            for key, beta in aux_betas.items():
+                if key in metrics:
+                    loss = loss + beta * metrics[key]
+            metrics["loss"] = loss
+        with trace.span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if zero_fill:
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+        with trace.span("train.optimizer"):
+            with trace.span("train.grad_norm"):
+                grads = [p.grad for p in params if p.grad is not None]
+                metrics["grad_norm"] = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(_full(g).float()) for g in grads]))
+                if gradient_clip_norm:
+                    clip_gradients_([_local(g) for g in grads], metrics["grad_norm"],
+                                    gradient_clip_norm)
+            with trace.span("train.adam"):
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         return mean_over_ranks(metrics) if world > 1 else metrics
 
