@@ -267,10 +267,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    achieved TFLOP/s and the MFU against the card's bf16 peak, counts reset
    before each probe and read after it: 2 launches per step;
 49. (aq) ``profile_train --config-name cfg_low_level --trace`` for PROFILE_STEPS
-   steps, then ``roofline`` on the trace: the top 10 kernels that are not
-   products, and the shift kernel's share of the memory rate against the
-   share of its bound that (q) measured (within 10 points); 2 launches per
-   step;
+   steps, then ``roofline`` on the trace (its steps eager): the top 10
+   kernels that are not products, and the shift kernel's share of the memory
+   rate against the share of its bound that (q) measured (within 10 points);
+   2 launches per step, the wrapper's and the graph replays'; the warm-up
+   one eager step, a capture and a replay, and the shift kernel on the
+   replayed steps' device trace;
 50. (ar) ``visualize_dataset affordance`` with (ah)'s ``rn18_pixel`` detector on
    the card over (ah)'s labels: errors.json written, PNGs where cv2,
    matplotlib and imageio import (else listed); (k)'s token detector refused;
@@ -696,7 +698,7 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     result = training.main(["--synthetic", "--max-steps", str(MAIN_STEPS), "--device", "cuda",
                             "--run-dir", str(RUN_DIR)])
     torch.cuda.synchronize(dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
     if len(result.history) != MAIN_STEPS:
@@ -729,7 +731,9 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     print(f"[main] flagship policy, {n_params / 1e6:.2f}M params, batch {windows} windows x "
           f"{cfg['datamodule']['max_window_size']} frames, bf16 autocast", flush=True)
     print(f"[main] losses: " + ", ".join(f"{line['loss']:.4f}" for line in result.history), flush=True)
-    print(f"[main] {moved}/{len(fresh)} parameter tensors moved; launches {launches}", flush=True)
+    print(f"[main] {moved}/{len(fresh)} parameter tensors moved; launches {launches} (by the "
+          f"wrapper {kernels.LAUNCHES}, in replays of the step's CUDA graph {kernels.REPLAYED})",
+          flush=True)
     print(f"[main] step time {step_ms:.2f} ms (median of steps {WARM_STEPS}..{MAIN_STEPS - 1}, "
           f"spread {min(steady):.1f}-{max(steady):.1f} ms; step 0 "
           f"{result.history[0]['step_ms']:.1f} ms), {1e3 * windows / step_ms:.1f} windows/s = "
@@ -887,7 +891,7 @@ def phase_eval(dev: torch.device, card: str) -> dict:
         "--ep-len", str(EVAL_EP_LEN), "--log-dir", str(EVAL_DIR), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     results_file = EVAL_DIR / "results.json"
     if not results_file.is_file():
         fail("the evaluation wrote no results.json")
@@ -1008,7 +1012,7 @@ def phase_disk_train(dev: torch.device, card: str) -> tuple:
         kernels.reset_launch_counts()
         results.append(training.main(argv + ["--max-epochs", str(epochs)]))
         torch.cuda.synchronize(dev)
-        launches.append(dict(kernels.LAUNCHES))
+        launches.append(kernels.launch_counts())
     first, second = results
     if first.resumed_from is not None or second.resumed_from != DISK_STEPS:
         fail(f"the second run resumed from {second.resumed_from}, expected {DISK_STEPS}")
@@ -1074,7 +1078,7 @@ def phase_disk_eval(dev: torch.device, card: str, trained) -> dict:
         str(EVAL_EP_LEN), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     if not (log_dir / "results.json").is_file():
         fail("the evaluation of the trained run wrote no results.json")
     diag = json.loads((log_dir / "eval_diagnostics.json").read_text())
@@ -1243,7 +1247,7 @@ def phase_hier_eval(dev: torch.device, card: str, trained, tag: str = "hier_eval
         str(log_dir), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     if not (log_dir / "results.json").is_file():
         fail(f"the hierarchical evaluation of {aff_run.name} wrote no results.json")
     diag = json.loads((log_dir / "eval_diagnostics.json").read_text())
@@ -1302,7 +1306,7 @@ def phase_paraphrase(dev: torch.device, card: str) -> dict:
         "--log-dir", str(PARA_DIR), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     diag = eval_diag(PARA_DIR, "paraphrase evaluation")
     h, records = diag["hierarchical"], diag["subtask_records"]
     if diag["paraphrase_eval"] is not True or len({r["chain"] for r in records}) != DISK_CHAINS:
@@ -1358,7 +1362,7 @@ def phase_sweep(dev: torch.device, card: str) -> dict:
         log.removeHandler(handler)
         log.setLevel(level)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     eval_diag(SWEEP_DIR, "sweep")
     results = json.loads((SWEEP_DIR / "results.json").read_text())
     steps = [str(DISK_STEPS), str(2 * DISK_STEPS)]
@@ -1401,7 +1405,7 @@ def phase_single_step(dev: torch.device, card: str) -> dict:
         str(EVAL_EP_LEN), "--log-dir", str(SINGLE_DIR), "--device", "cuda"])
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     diag = eval_diag(SINGLE_DIR, "single-step evaluation")
     records = diag["subtask_records"]
     if not jobs or diag["num_sequences"] != len(jobs) or len(records) != len(jobs) \
@@ -1443,7 +1447,7 @@ def phase_interactive(dev: torch.device, card: str) -> dict:
                                     stdin=io.StringIO("\n".join(instructions) + "\n"))
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     lines = [line for line in out.getvalue().splitlines() if line.startswith("-> ")]
     if len(lines) != len(instructions) or [v[0] for v in verdicts] != instructions:
         fail(f"expected one verdict line per instruction, got {lines}")
@@ -1601,7 +1605,7 @@ def phase_low_train(dev: torch.device, card: str, tag: str = "low_train",
     finally:
         native_loader.load_frames_into = load_frames_into
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     what = f"{root} {' '.join(overrides)}".strip()
     if result.step != steps or len(result.history) != steps or len(result.val_history) != 1:
         fail(f"{what}: {result.step} steps, {len(result.history)} train and "
@@ -1695,7 +1699,7 @@ def phase_low_eval(dev: torch.device, card: str, tag: str = "low_eval",
         hulc2_agent.Hulc2Agent.__init__ = agent_init
         render_torch.make_render_obs_fn = make_render
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     diag = eval_diag(log_dir, f"{run_dir.name} evaluation")
     if not 0.0 <= merged["latest"]["avg_seq_len"] <= 5.0 or \
             len({r["chain"] for r in diag["subtask_records"]}) != DISK_CHAINS:
@@ -2183,7 +2187,7 @@ def phase_isolation(dev: torch.device, card: str) -> dict:
               f"{max(wall[WARM_STEPS:]):.1f}), loader wait {row['wait_ms']:.2f} ms, device busy "
               f"{busy:.2f} ms a step; turn {row['turn_s']:.1f} s with start-up; on {card}",
               flush=True)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     want = 2 * (ISOLATION_BATCHES + BUSY_STEPS) * len(turns)
     if launches["shift_normalize"] != want:
         fail(f"shift_normalize launched {launches['shift_normalize']} times in the turns' "
@@ -2215,7 +2219,7 @@ def phase_encoder_run(dev: torch.device, card: str, tag: str, overrides: list,
     kernels.reset_launch_counts()
     result = training.main(argv)
     torch.cuda.synchronize(dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     losses = [line["loss"] for line in result.history]
     if len(losses) != ENCODER_STEPS or not all(math.isfinite(v) for v in losses):
         fail(f"{tag}: losses {losses}")
@@ -2664,7 +2668,7 @@ def phase_real_world(dev: torch.device, card: str, task_to_ann: dict) -> dict:
     finally:
         RealWorldAgent.reset = reset
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     steps = RW_EP_LEN * len(instructions)
     if len(moves) != len(instructions) or min(moves) <= 0.05 or \
             agent.n_aff_predictions != len(instructions):
@@ -2747,7 +2751,7 @@ def phase_callbacks(dev: torch.device, card: str) -> dict:
     result = training.main(argv)
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launch_counts()
     names = [type(cb).__name__ for cb in result.callbacks]
     if names != ["RolloutLongHorizonCallback", "RolloutCallback", "RolloutCallback",
                  "TSNEPlotCallback"]:
@@ -2933,7 +2937,7 @@ def phase_flops(dev: torch.device, card: str) -> dict:
         got.update(flops_probe.measure(run, got["flops"], 5, 5))
         torch.cuda.synchronize(dev)
         card_s = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_counts()
         del run
         torch.cuda.empty_cache()
         steps = 1 + 5 + 5 + 5  # counted, warm-up, timed, profiled
@@ -2965,18 +2969,28 @@ def phase_roofline(dev: torch.device, card: str, low_kernel: dict) -> dict:
     TRACE.unlink(missing_ok=True)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    profile_train.main(["--config-name", "cfg_low_level", "--steps", str(PROFILE_STEPS),
-                        "--warmup", "3", "--trace", str(TRACE)])
+    got = profile_train.main(["--config-name", "cfg_low_level", "--steps", str(PROFILE_STEPS),
+                              "--warmup", "3", "--trace", str(TRACE)])
     torch.cuda.synchronize(dev)
-    launches = dict(kernels.LAUNCHES)
-    # the warm-up, the timed steps, the profiled steps and the phase table's slice
-    want = 2 * (3 + 3 * PROFILE_STEPS)
+    launches = kernels.launch_counts()
+    # the warm-up, the timed steps, the profiled steps, the trace's eager
+    # steps and the phase table's slice
+    want = 2 * (3 + 4 * PROFILE_STEPS)
     if launches["shift_normalize"] != want:
         fail(f"profile_train launched shift_normalize {launches['shift_normalize']} times, "
              f"expected {want}")
+    # the warm-up: one eager step, the capture, a replay; the profiled
+    # steps replay, and their device trace holds the kernel (exactly twice a
+    # step in test_torch_port_train_graph's card test; in this long process
+    # the profiler has dropped a replay's first records)
+    warm = {"train.eager_steps": 1, "train.graph_captures": 1, "train.graph_replays": 1}
+    replayed = got["execs"].get("shift_normalize", 0)
+    if got["warmup"] != warm or not replayed:
+        fail(f"profile_train's warm-up {got['warmup']} (expected {warm}), shift_normalize "
+             f"{replayed} times a replayed step on the device trace (expected some)")
     r = roofline.roofline(TRACE, PROFILE_STEPS, top=10)
     full = roofline.roofline(TRACE, PROFILE_STEPS, top=10_000)
-    print(f"[roofline] cfg_low_level, {PROFILE_STEPS} profiled steps ({time.perf_counter() - t0:.1f} "
+    print(f"[roofline] cfg_low_level, {PROFILE_STEPS} profiled eager steps ({time.perf_counter() - t0:.1f} "
           f"s with the profile): device {r['device_ms_per_step']:.3f} ms a step, kernels other than "
           f"products {r['non_product_pct']:.1f}% of it; memory rate {r['hbm_gbps']:.0f} GB/s "
           f"({r['device']}); on {card}", flush=True)
@@ -2996,7 +3010,8 @@ def phase_roofline(dev: torch.device, card: str, low_kernel: dict) -> dict:
           f"(tol 10 points); furthest below the memory rate of the top rows with exact bytes: "
           + (f"{low['kernel'][:60]} [{low['op']}] x{low['execs_per_step']:g} at "
              f"{low['roofline_pct']:.1f}%" if low else "none")
-          + "; a share above 100% reads data the 50 MB L2 holds", flush=True)
+          + "; a share above 100% reads data the 50 MB L2 holds; shift_normalize on the "
+          f"replayed steps' device trace {replayed:g} times a step", flush=True)
     if abs(share - bench_share) > 10:
         fail(f"the roofline's {share:.1f}% and the bench's {bench_share:.1f}% differ by more than "
              "10 points")
@@ -3054,7 +3069,7 @@ def phase_previews(dev: torch.device, card: str) -> None:
     print(f"[previews] visualize_dataset affordance, (ah)'s rn18_pixel on {dev}: 16 samples, "
           f"mean px error {summary['mean_px_error']:.1f}, median {summary['median_px_error']:.1f}, "
           f"mean depth error {summary.get('mean_depth_error', float('nan')):.4f}; {len(pngs)} PNGs; "
-          f"{preview_s:.2f} s; launches {dict(kernels.LAUNCHES)} (the detector's path runs no "
+          f"{preview_s:.2f} s; launches {kernels.launch_counts()} (the detector's path runs no "
           f"shift_normalize); the token detector refused: {refused[:100]}...; driven: "
           f"{driven or 'none'}; not driven: { {d: m for d, m in lacking.items() if m} or 'none'} "
           f"(packages that do not import here); on {card}", flush=True)
@@ -3176,7 +3191,7 @@ def dp_rank_run(dev: torch.device, rank: int, world: int, mesh) -> dict:
         reduce_ms = statistics.median(times[1:])
     return {"adam": adam[0], "adam_ms": adam[2], "ddp_records": adam[3], "sgd": plain[0],
             "reduce_ms": reduce_ms, "numel": sum(p.numel() for p in plain[1].values()),
-            "params": plain[1], "launches": dict(kernels.LAUNCHES),
+            "params": plain[1], "launches": kernels.launch_counts(),
             "rows": batch["vis"]["actions"].shape[0] + batch["lang"]["actions"].shape[0]}
 
 

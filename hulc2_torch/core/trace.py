@@ -22,7 +22,8 @@ Chrome traces. ``count`` adds to a named counter; ``device_counts`` counts,
 over a block on the card, the host-device synchronisations its thread made
 (CUDA's sync debug mode set to warn for the block and restored after), the
 caching allocator's ``cudaMalloc`` calls and the pinned host allocator's
-CUDA allocations.
+CUDA allocations. ``SyncCounter`` counts a block's synchronisations whether
+tracing is on or not: the train step reads it on a signature's first call.
 """
 from __future__ import annotations
 
@@ -148,6 +149,37 @@ def drain() -> dict:
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
+class SyncCounter:
+    """A context that counts, in ``n``, the host-device synchronisations the
+    entering thread makes in the block, whether tracing is on or not: each a
+    warning of CUDA's sync debug mode, which is set to ``warn`` for the block
+    and restored after; the warnings are not shown. Counters nest: an outer
+    one counts what an inner one counts."""
+
+    def __enter__(self):
+        self.thread, self.n = threading.get_ident(), 0
+        self.mode = torch.cuda.get_sync_debug_mode()
+        self.catch = warnings.catch_warnings()
+        self.catch.__enter__()
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        self.shown = warnings.showwarning
+        warnings.showwarning = self._show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def _show(self, message, category, *args, **kwargs):
+        if threading.get_ident() == self.thread and re.match(SYNC_WARNING, str(message)):
+            self.n += 1
+            if not isinstance(getattr(self.shown, "__self__", None), SyncCounter):
+                return
+        self.shown(message, category, *args, **kwargs)
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(self.mode)
+        self.catch.__exit__(*exc)
+        return False
+
+
 class _DeviceCounts:
     """``device_counts`` while tracing on the card."""
 
@@ -155,33 +187,19 @@ class _DeviceCounts:
                  pinned: Optional[str]):
         self.device, self.syncs, self.mallocs, self.pinned = device, syncs, mallocs, pinned
 
-    def _show(self, message, category, *args, **kwargs):
-        if threading.get_ident() == self.thread and re.match(SYNC_WARNING, str(message)):
-            self.n_syncs += 1
-            return
-        self.shown(message, category, *args, **kwargs)
-
     def __enter__(self):
         if self.mallocs:
             self.malloc0 = torch.cuda.memory_stats(self.device)["num_device_alloc"]
         if self.pinned:
             self.pinned0 = torch.cuda.host_memory_stats()["num_host_alloc"]
         if self.syncs:
-            self.thread, self.n_syncs = threading.get_ident(), 0
-            self.mode = torch.cuda.get_sync_debug_mode()
-            self.catch = warnings.catch_warnings()
-            self.catch.__enter__()
-            warnings.filterwarnings("always", message=SYNC_WARNING)
-            self.shown = warnings.showwarning
-            warnings.showwarning = self._show
-            torch.cuda.set_sync_debug_mode("warn")
+            self.sync_counter = SyncCounter().__enter__()
         return self
 
     def __exit__(self, *exc):
         if self.syncs:
-            torch.cuda.set_sync_debug_mode(self.mode)
-            self.catch.__exit__(*exc)
-            count(self.syncs, self.n_syncs)
+            self.sync_counter.__exit__(*exc)
+            count(self.syncs, self.sync_counter.n)
         if self.pinned:
             count(self.pinned, torch.cuda.host_memory_stats()["num_host_alloc"]
                   - self.pinned0)

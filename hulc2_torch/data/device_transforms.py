@@ -424,12 +424,16 @@ def _obs_stats(stats: DatasetStatistics, device: torch.device, cache: Optional[D
     """(mean, std) of ``key`` (robot_obs or scene_obs) as fp32 tensors on
     ``device``. ``cache`` maps a device to {key: the pair already copied
     there}; the batch transform keeps one, because a copy from pageable
-    memory on every step would synchronise the stream."""
+    memory on every step would synchronise the stream. The card's copy
+    goes through pinned memory, so that the first step does not synchronise
+    either (the train step captures a CUDA graph only of a step that does
+    not)."""
     on_device = (cache if cache is not None else {}).setdefault(device, {})
     if key not in on_device:
-        on_device[key] = tuple(
-            torch.as_tensor(np.asarray(getattr(stats, f"{key}_{part}"), np.float32)).to(device)
-            for part in ("mean", "std"))
+        pairs = [torch.as_tensor(np.asarray(getattr(stats, f"{key}_{part}"), np.float32))
+                 for part in ("mean", "std")]
+        on_device[key] = tuple(t.pin_memory().to(device, non_blocking=True)
+                               if device.type == "cuda" else t.to(device) for t in pairs)
     return on_device[key]
 
 

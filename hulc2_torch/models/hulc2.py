@@ -25,7 +25,7 @@ carry's hidden state is the decoder's: a tensor, or the LSTM's (h, c) pair.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -137,7 +137,8 @@ class Hulc2(nn.Module):
             goals.append(self.language_goal(lang_emb, deterministic, generator))
         return torch.cat(goals) if len(goals) > 1 else goals[0]
 
-    def forward(self, batch: Dict, kl_beta: float, n_vis: int, deterministic: bool = False,
+    def forward(self, batch: Dict, kl_beta: Union[float, torch.Tensor], n_vis: int,
+                deterministic: bool = False,
                 generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Fused [vis; lang] batch -> metrics dict (``fused_n_vis`` form of the
@@ -147,7 +148,8 @@ class Hulc2(nn.Module):
         embeddings without a tower), ``use_for_aux_lang_loss`` and
         ``lang_task_id``. A single-modality batch has only vis rows (no
         ``lang``) or only lang rows (``n_vis`` 0), and only that modality's
-        metrics, as JAX's ``mods``. ``gumbel`` replaces the plan sampler's
+        metrics, as JAX's ``mods``. ``kl_beta`` is a float or a float32
+        scalar on the device. ``gumbel`` replaces the plan sampler's
         draw: Gumbel noise (B, categories, classes) for discrete plans,
         standard normal (B, plan_features) for continuous ones. Its parts are
         spans of ``core/trace`` while tracing is on: ``model.encode`` (the
@@ -181,7 +183,9 @@ class Hulc2(nn.Module):
             act = self.action_loss_per_sample(dec_out, actions, robot_obs_raw)
             metrics: Dict[str, torch.Tensor] = {}
             for m, (lo, hi) in splits.items():
-                metrics[f"kl_loss_{m}"] = kl_beta * kl[lo:hi].mean()
+                kl_m = kl[lo:hi].mean()
+                # a device-scalar beta (the replayed train step's) rounds as a float would
+                metrics[f"kl_loss_{m}"] = (kl_beta * kl_m).to(kl_m.dtype)
                 metrics[f"action_loss_{m}"] = act[lo:hi].mean()
             kl_loss = sum(metrics[f"kl_loss_{m}"] for m in splits) / len(splits)
             action_loss = sum(metrics[f"action_loss_{m}"] for m in splits) / len(splits)

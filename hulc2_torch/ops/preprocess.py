@@ -58,9 +58,13 @@ def _affine_c(mean: Tuple[float, ...], std: Tuple[float, ...], channels: int) ->
 def _affine_on(mean: Tuple[float, ...], std: Tuple[float, ...], channels: int,
                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_affine`` on ``device``, copied there once: a copy from pageable host
-    memory on every call would synchronise the stream."""
-    scale, shift = _affine(mean, std, channels)
-    return scale.to(device), shift.to(device)
+    memory on every call would synchronise the stream. The card's copy goes
+    through pinned memory, so that the first call does not synchronise
+    either."""
+    pair = _affine(mean, std, channels)
+    if device.type == "cuda":
+        return tuple(t.pin_memory().to(device, non_blocking=True) for t in pair)
+    return tuple(t.to(device) for t in pair)
 
 
 def scale_and_normalize(imgs: torch.Tensor, mean: Stat, std: Stat) -> torch.Tensor:

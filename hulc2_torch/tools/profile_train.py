@@ -8,16 +8,23 @@ ending in a device synchronise), then runs ``--steps`` steps under
 ``torch.profiler`` and prints, per step: the wall time without and with the
 profiler, the device-busy time (union of the kernels' intervals), the idle
 share (the rest of the unprofiled wall time), the count of kernels and
-copies, the device time by kernel family and the top kernels. ``--trace``
-writes the Chrome trace, the program's spans (``core/trace``) in it: the
-tracer is on for those profiled steps then, and its cost is in their wall
-time. Then one slice of ``--steps`` steps back to back with the tracer on,
+copies, the device time by kernel family and the top kernels. These are the
+steps as they run: on the card, replays of the step's CUDA graph once the
+warm-up has captured it. ``--trace`` then profiles ``--steps`` more steps
+with each op's shapes recorded and the tracer on (the program's spans in the
+trace, their cost in the wall time) and writes their Chrome trace; those
+steps run eager (the step's ``eager=True``), because ``roofline`` links each
+kernel to the op that launched it, which a replayed kernel does not have.
+Then one slice of ``--steps`` steps back to back with the tracer on,
 device activity profiled (``traced_slice``), and its table per span
 (``phase_table``): its calls, host ms, runtime launches and device idle ms
 a step (the prefetch thread's spans apart from the step's thread), the
 counters (``train.host_syncs``, ``train.device_mallocs``,
-``prefetch.pinned_allocs``) and the prefetch thread's batches joined to the
-step's. Counterpart of
+``prefetch.pinned_allocs``, and the step's graph: ``train.eager_steps``,
+``train.graph_captures``, ``train.graph_replays``, those of the warm-up
+too, which runs with the tracer on) and the prefetch thread's batches
+joined to the step's. A slice of replayed steps is labelled "(replayed)":
+its steps have the span ``train.replay`` and no inner phases. Counterpart of
 ``hulc2_tpu/tools/profile_train.py``; ``--config-name`` and the overrides
 are those of ``hulc2_torch.training`` (the flagship without
 ``--config-name``).
@@ -144,8 +151,8 @@ class DiskRun:
         finally:
             it.close()
 
-    def step(self, _) -> Dict[str, torch.Tensor]:
-        return self.train_step(next(self.batches), self.generator, self.kl_beta)
+    def step(self, _, eager: bool = False) -> Dict[str, torch.Tensor]:
+        return self.train_step(next(self.batches), self.generator, self.kl_beta, eager=eager)
 
 
 def tile_store(dm: Hulc2DataModule, rows: int) -> int:
@@ -196,29 +203,30 @@ def _device_events(prof) -> list:
     return events
 
 
-def profile_steps(run, n: int, record_shapes: bool = False) -> tuple:
+def profile_steps(run, n: int, eager: bool = False) -> tuple:
     """``n`` steps of ``run`` under ``torch.profiler``, their batches made
     before it; returns (the profile, the wall ms per step under it, the
     device activities, the device-busy ms per step: the union of their
-    intervals). With ``record_shapes`` (each op's input shapes) the tracer
-    (``core/trace``) is on, so that the program's spans are in the trace:
-    the kernel's launch span carries its shape, which ``tools/roofline.py``
-    reads from the exported trace; the wall time then holds the tracer's
-    cost."""
+    intervals). With ``eager`` the steps run eager, each op's input shapes
+    are recorded and the tracer (``core/trace``) is on, so that the
+    program's spans are in the trace: each kernel has the op that launched
+    it, and the hand-written kernel's launch span carries its shape, which
+    ``tools/roofline.py`` reads from the exported trace; the wall time then
+    holds the tracer's cost."""
     batches = [run.next_batch() for _ in range(n)]
     torch.cuda.synchronize(run.device)
-    if record_shapes:
+    if eager:
         trace.enable()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=record_shapes) as prof:
+                     record_shapes=eager) as prof:
             t0 = time.perf_counter()
             for raw in batches:
-                run.step(raw)
+                run.step(raw, eager=eager)
             torch.cuda.synchronize(run.device)
             profiled_ms = (time.perf_counter() - t0) * 1e3 / n
     finally:
-        if record_shapes:
+        if eager:
             trace.disable()
             trace.drain()
     kernels = _device_events(prof)
@@ -231,6 +239,7 @@ def profile_steps(run, n: int, record_shapes: bool = False) -> tuple:
 LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|Memcpy|Memset)")
 NO_SPAN = "no program span"
 PHASES = ("train.forward", "train.backward", "train.optimizer")
+GRAPH_COUNTERS = ("train.eager_steps", "train.graph_captures", "train.graph_replays")
 
 
 def traced_slice(run, n: int) -> dict:
@@ -381,20 +390,23 @@ def handoffs(spans: list) -> dict:
                                  for k in joined) / waited if waited else None)}
 
 
-def print_phases(on: dict) -> None:
-    """The per-phase table of the traced slice ``on`` and its counters."""
+def print_phases(on: dict, warmup: Optional[dict] = None) -> None:
+    """The per-phase table of the traced slice ``on`` and its counters, and
+    the step's graph counters of the warm-up's counters ``warmup``."""
     table = phase_table(on)
     n = on["steps"]
     rows = table["rows"]
+    replayed = on["counters"].get("train.graph_replays", 0) == n
     print(f"per phase, per step ({n} steps traced back to back, device activity profiled; "
-          f"host clock): {on['ms_per_step']:.2f} ms a step, the tracer's cost in it")
+          f"host clock){' (replayed)' if replayed else ''}: {on['ms_per_step']:.2f} ms a step, "
+          f"the tracer's cost in it")
     print(f"  {'span':<22} {'thread':<6} {'calls':>6} {'host ms':>9} {'launches':>9} "
           f"{'idle ms':>8}")
     for name, r in sorted(rows.items(), key=lambda kv: (kv[1]["thread"], -kv[1]["host_ms"])):
         print(f"  {name:<22} {r['thread']:<6} {r['calls']:6.2f} {r['host_ms']:9.3f} "
               f"{r['launches']:9.1f} {r['idle_ms']:8.3f}")
     step = rows.get("train.step", {}).get("host_ms")
-    if step:
+    if step and not replayed:
         parts = sum(rows.get(p, {}).get("host_ms", 0.0) for p in PHASES)
         print(f"  forward + backward + optimizer: {parts:.3f} ms, {100 * parts / step:.1f}% of "
               f"train.step")
@@ -405,6 +417,10 @@ def print_phases(on: dict) -> None:
           f"{len(on['device']) / n:.1f} device activities a step")
     counters = {k: v / n for k, v in sorted(on["counters"].items())}
     print(f"  counters a step: {counters}")
+    graph = {k: on["counters"].get(k, 0) for k in GRAPH_COUNTERS}
+    print(f"  the step's graph in the slice: {graph}" + (
+        "" if warmup is None else
+        f"; in the warm-up: { {k: warmup.get(k, 0) for k in GRAPH_COUNTERS} }"))
     h = handoffs(on["spans"])
     if h["batches"]:
         print(f"  prefetch: {h['batches']} batches joined; each waited {h['lead_ms']:.3f} ms in "
@@ -413,7 +429,10 @@ def print_phases(on: dict) -> None:
               f"prefetch.next")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Prints the breakdown; returns {"execs": the profiled steps' device
+    activities a step by kernel family, "warmup": the warm-up's graph
+    counters}."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--steps", type=int, default=5)
@@ -443,26 +462,40 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     # on the host loader's path the batches assembled ahead during the
     # warm-up (the ring's slots and the prefetch queue) are used up first,
     # so that the timed steps wait for the loader as a long run does
-    _timed_steps(run, args.warmup + (FusedBatchLoader.RING_SLOTS + PREFETCH if host_loader else 0))
+    # the tracer counts the warm-up's eager steps and captures
+    trace.drain()
+    trace.enable()
+    try:
+        _timed_steps(run, args.warmup + (FusedBatchLoader.RING_SLOTS + PREFETCH
+                                         if host_loader else 0))
+    finally:
+        trace.disable()
+    warmup = trace.drain()["counters"]
     plain_ms = statistics.median(_timed_steps(run, args.steps))
 
-    prof, profiled_ms, kernels, busy_ms = profile_steps(run, args.steps, record_shapes=bool(args.trace))
+    prof, profiled_ms, kernels, busy_ms = profile_steps(run, args.steps)
     if args.trace:
-        prof.export_chrome_trace(args.trace)
+        eager_prof, eager_ms, _, eager_busy_ms = profile_steps(run, args.steps, eager=True)
+        eager_prof.export_chrome_trace(args.trace)
 
     by_name: Dict[str, List[float]] = defaultdict(list)
     for e in kernels:
         by_name[e.name].append(e.time_range.elapsed_us())
     by_family: Dict[str, float] = defaultdict(float)
+    execs: Dict[str, float] = defaultdict(float)
     for name, times in by_name.items():
         by_family[family(name)] += sum(times) / 1e3 / args.steps
+        execs[family(name)] += len(times) / args.steps
 
     source = "synthetic batches"
     if args.data:
         source = f"from {args.data} ({'device store' if run.store is not None else 'host loader'})"
     print(f"card: {card}; torch {torch.__version__}; config {args.config_name or 'flagship'}; {source}")
     print(f"wall per step: {plain_ms:.2f} ms (median of {args.steps}, no profiler), "
-          f"{profiled_ms:.2f} ms under the profiler" + (" (tracer on)" if args.trace else ""))
+          f"{profiled_ms:.2f} ms under the profiler")
+    if args.trace:
+        print(f"eager steps of the trace for roofline ({args.trace}): {eager_ms:.2f} ms a step "
+              f"under the profiler, the tracer on; device busy {eager_busy_ms:.2f} ms a step")
     if args.data and run.store is not None:
         print(f"device store: {run.store.nbytes} bytes resident in "
               f"{run.store.arrays[run.store.image_keys[0]].shape[0]} rows, uploaded in "
@@ -491,7 +524,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]
     for name, times in top:
         print(f"  {sum(times) / 1e3 / args.steps:8.3f} ms  x{len(times) // args.steps:<5d} {name[:100]}")
-    print_phases(traced_slice(run, args.steps))
+    print_phases(traced_slice(run, args.steps), warmup)
+    return {"execs": dict(execs), "warmup": {k: warmup.get(k, 0) for k in GRAPH_COUNTERS}}
 
 
 if __name__ == "__main__":

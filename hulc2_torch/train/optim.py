@@ -18,6 +18,14 @@ evaluates the schedule at the count before the update, so update k uses
 ``schedule(k)`` and the first warm-up update uses lr 0. ``make_scheduler``
 wraps one in a ``LambdaLR`` stepped after each update; its state goes into
 the checkpoint, so a resumed run continues the schedule at its step.
+
+On the card, Adam and AdamW are built ``fused`` (one multi-tensor update
+launch) and ``capturable`` with the learning rate in a device scalar, which
+the ``LambdaLR`` fills in place: the train step replays its update inside a
+CUDA graph (``train/steps.py``), which reads the step count and the learning
+rate from the device instead of baking them in at capture. A loaded state
+dict's groups take those settings again, from a checkpoint of an eager-only
+optimizer too.
 """
 from __future__ import annotations
 
@@ -83,24 +91,55 @@ def schedule_value(opt_cfg: dict, sched_cfg: Optional[dict], step: int,
 
 def make_optimizer(params, opt_cfg: dict) -> torch.optim.Optimizer:
     """The optimizer of ``model.optimizer`` at its base learning rate; the
-    schedule is ``make_scheduler``'s."""
+    schedule is ``make_scheduler``'s. Adam and AdamW of parameters on the card
+    are ``fused`` and ``capturable``, their learning rate a device scalar."""
     kind, lr = opt_cfg.get("kind", "adam"), opt_cfg.get("lr", 2e-4)
-    if kind == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    if kind == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=opt_cfg.get("weight_decay", 1e-6))
+    if kind in ("adam", "adamw"):
+        params = list(params)
+        first = params[0]["params"][0] if isinstance(params[0], dict) else params[0]
+        card = first.device if first.device.type == "cuda" else None
+        opt_kw = {"lr": lr if card is None else torch.tensor(float(lr), device=card),
+                  "betas": (0.9, 0.999), "eps": 1e-8}
+        if card is not None:
+            opt_kw.update(fused=True, capturable=True)
+        if kind == "adam":
+            optimizer = torch.optim.Adam(params, **opt_kw)
+        else:
+            optimizer = torch.optim.AdamW(params, weight_decay=opt_cfg.get("weight_decay", 1e-6),
+                                          **opt_kw)
+        if card is not None:
+            # the fused update is the same launch whether it is captured or
+            # not, so the warning that capturable=True slows an eager step
+            # does not apply
+            optimizer._warned_capturable_if_run_uncaptured = True
+            optimizer.register_load_state_dict_pre_hook(
+                lambda opt, state: _as_built(state, card))
+        return optimizer
     if kind == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=opt_cfg.get("momentum", 0.9), dampening=0.0)
     raise ValueError(f"unknown optimizer kind {kind!r}")
 
 
+def _as_built(state: dict, card: torch.device) -> dict:
+    """A state dict to load into ``make_optimizer``'s Adam or AdamW on
+    ``card``: each group fused and capturable, as built, and its learning
+    rate a float32 scalar on the card (a state dict holds a float, or a
+    tensor loaded to the host)."""
+    groups = [{**g, "fused": True, "capturable": True,
+               "lr": torch.tensor(float(g["lr"]), device=card)} for g in state["param_groups"]]
+    return {**state, "param_groups": groups}
+
+
 def make_scheduler(optimizer: torch.optim.Optimizer, opt_cfg: dict, sched_cfg: Optional[dict],
                    estimated_total: int = 100_000) -> torch.optim.lr_scheduler.LambdaLR:
     """A ``LambdaLR`` that sets update k's learning rate to ``schedule(k)``;
-    step it once after each ``optimizer.step()``."""
+    step it once after each ``optimizer.step()``. A learning rate in a
+    device scalar is filled in place, from the float base rate."""
     base_lr = opt_cfg.get("lr", 2e-4)
     schedule = make_schedule(sched_cfg, base_lr, estimated_total)
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group.setdefault("initial_lr", float(base_lr))
     return torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda count: schedule(count) / base_lr if base_lr else 0.0)
 

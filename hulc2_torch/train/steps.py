@@ -15,6 +15,14 @@ Its phases are spans of ``core/trace``, recorded while tracing is on:
 ``train.adam``: the update and the schedule), and on the card the counters
 ``train.host_syncs`` and ``train.device_mallocs``.
 
+On the card in one process the step is captured once per batch signature as
+one CUDA graph and replayed (``StepGraphs``): ~2,350 launches of the
+flagship step become one graph launch. A replayed step's span is
+``train.replay`` under ``train.step``; the inner phases are spans only of
+eager and capturing calls. Counters: ``train.eager_steps``,
+``train.graph_captures``, ``train.graph_replays`` and
+``train.runahead_waits`` (a replay that waited for the device).
+
 Rollout steps (``:146``, ``:178``): one call per env step for a batch of envs,
 under ``torch.inference_mode()``: [render the frames (and depth_static) from
 the env states,] the val transform (one shift_normalize launch at pad 0 per
@@ -24,12 +32,14 @@ action without waiting for it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import gc
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from hulc2_torch import kernels
 from hulc2_torch.core import trace
 from hulc2_torch.data.device_transforms import LANG_KEYS
 from hulc2_torch.models.hulc2 import Hulc2, PolicyCarry, PolicyDraws
@@ -55,7 +65,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transfor
                     clip_loss_beta: float = 3.0, aux_betas: Optional[Dict[str, float]] = None,
                     device=None, scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None,
                     gradient_clip_norm: Optional[float] = None) -> Callable:
-    """fn(raw_batch, generator, kl_beta, gumbel=None, draws=None) -> metrics.
+    """fn(raw_batch, generator, kl_beta, gumbel=None, draws=None, eager=False) -> metrics.
 
     ``raw_batch`` is {"vis": window dict, "lang": window dict}, or one batch
     with [vis; lang] rows already fused, as the device-store loader yields it
@@ -72,6 +82,19 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transfor
     ranks' rows (``parallel/batch_shard.py``), the gradients averaged over
     the ranks before their norm and clipping, and the returned metrics are
     the ranks' mean: those of one process's step on the global batch.
+
+    On the card in one process, the model not wrapped for data parallelism,
+    without ``draws``, with a float ``kl_beta`` and a capturable optimizer
+    (``capture_safe``; ``graph_engages``), the step is replayed as a
+    CUDA graph, one per batch signature (``batch_signature``, and the
+    generator): a signature's first call runs eager and, unless it made a
+    host synchronisation, its second captures the step and every later call
+    replays it (``StepGraphs``, the returned function's ``graphs``; None
+    where the step never replays); a signature whose first call synchronised
+    stays eager. The work, its order and its precision are the eager step's.
+    Every other call runs eager, and so does a call with ``eager=True``
+    (``tools/profile_train``'s traced steps, whose kernels ``tools/roofline``
+    links to the ops that launched them, which a replay does not have).
     """
     device = resolve_device(device)
     core = unwrap(model)
@@ -84,21 +107,55 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transfor
     # optax decays every parameter, those without a gradient in this graph
     # (GCBC's plan heads) too; torch skips a parameter whose .grad is None
     zero_fill = any(g.get("weight_decay", 0.0) for g in optimizer.param_groups)
-    world = dist.get_world_size() if model is not core or _sharded(model) else 1
+    wrapped = model is not core or _sharded(model)  # DDP or FSDP2, on any number of ranks
+    world = dist.get_world_size() if wrapped else 1
     rank = dist.get_rank() if world > 1 else 0
+    graphs = (StepGraphs(device, model, params, scheduler)
+              if graph_engages(device, world, wrapped=wrapped) else None)
 
     calls = 0
 
     def step(raw_batch: Dict, generator: torch.Generator,
              kl_beta: float, gumbel: Optional[torch.Tensor] = None,
-             draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+             draws: Optional[Dict] = None, eager: bool = False) -> Dict[str, torch.Tensor]:
         nonlocal calls
         calls += 1
-        with trace.span("train.step", step=calls), trace.device_counts(
-                device, syncs="train.host_syncs", mallocs="train.device_mallocs"):
-            return step_body(raw_batch, generator, kl_beta, gumbel, draws)
+        with trace.span("train.step", step=calls):
+            key = None
+            if (graphs is not None and not eager and graph_engages(device, world, draws, wrapped)
+                    and isinstance(kl_beta, (int, float)) and capture_safe(optimizer)):
+                sig = batch_signature(raw_batch, gumbel)
+                if _on_card(sig):
+                    key = (sig, generator)
+            seen = graphs.table.get(key) if key is not None else EAGER
+            if isinstance(seen, CapturedStep):
+                trace.count("train.graph_replays")
+                return graphs.replay(seen, raw_batch, gumbel, kl_beta)
+            counts = trace.device_counts(device, syncs="train.host_syncs",
+                                         mallocs="train.device_mallocs")
+            if seen is WARM:
+                with counts:
+                    captured = graphs.capture(key, body, raw_batch, generator, gumbel)
+                trace.count("train.graph_captures")
+                return graphs.replay(captured, None, None, kl_beta)
+            with counts:
+                trace.count("train.eager_steps")
+                if seen is EAGER:
+                    return step_body(raw_batch, generator, kl_beta, gumbel, draws)
+                # the signature's first call: it warms up (the optimizer's
+                # state, cuDNN's and cuBLAS's handles) and tells whether the
+                # step synchronises, which a graph cannot
+                with trace.SyncCounter() as syncs:
+                    metrics = step_body(raw_batch, generator, kl_beta, gumbel, draws)
+                graphs.table[key] = WARM if syncs.n == 0 else EAGER
+                return metrics
 
-    def step_body(raw_batch, generator, kl_beta, gumbel, draws):
+    def body(raw_batch, generator, kl_beta, gumbel):
+        """The captured step: the eager one without the schedule's step,
+        which the replay takes on the host."""
+        return step_body(raw_batch, generator, kl_beta, gumbel, None, schedule=False)
+
+    def step_body(raw_batch, generator, kl_beta, gumbel, draws, schedule=True):
         if "actions" in raw_batch:  # fused on the host or by the store's gather
             fused = raw_batch
             n_vis = fused["actions"].shape[0] - fused["lang"].shape[0]
@@ -146,12 +203,192 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, transfor
                                     gradient_clip_norm)
             with trace.span("train.adam"):
                 optimizer.step()
-                if scheduler is not None:
+                if scheduler is not None and schedule:
                     scheduler.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         return mean_over_ranks(metrics) if world > 1 else metrics
 
+    step.graphs = graphs
     return step
+
+
+def graph_engages(device: torch.device, world: int, draws: Optional[Dict] = None,
+                  wrapped: bool = False) -> bool:
+    """Whether a train step may be replayed as a CUDA graph: on the card, in
+    one process, not a data-parallel rank (a model wrapped by DDP or FSDP2
+    stays eager, on one rank too: its reducer's work cannot be captured)
+    and without given draws (the parity tests' steps stay eager)."""
+    return device.type == "cuda" and world == 1 and not wrapped and draws is None
+
+
+def capture_safe(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether the optimizer's update can be replayed: every group
+    ``capturable``, its learning rate a tensor on the card, which the
+    schedule fills in place (a float would be baked into the graph)."""
+    return all(g.get("capturable", False) and isinstance(g["lr"], torch.Tensor)
+               and g["lr"].is_cuda for g in optimizer.param_groups)
+
+
+def _leaves(batch: Dict, path: tuple = ()):
+    """(path, value) of a (nested) batch dict's leaves, in its order."""
+    for k, v in batch.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def batch_signature(raw_batch: Dict, gumbel: Optional[torch.Tensor]) -> tuple:
+    """((path, shape, dtype, device) of each of the batch's leaves, and
+    gumbel's (shape, dtype, device) or None): a captured step replays only a
+    batch of its signature. A leaf that is not a tensor reads (path, None,
+    None, None)."""
+    leaves = tuple((path, tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor)
+                   else (path, None, None, None) for path, v in _leaves(raw_batch))
+    return leaves, None if gumbel is None else (tuple(gumbel.shape), gumbel.dtype, gumbel.device)
+
+
+def _on_card(signature: tuple) -> bool:
+    """Whether every tensor of a signature is on the card, and every leaf a tensor."""
+    leaves, gumbel = signature
+    devices = [d for *_, d in leaves] + ([gumbel[2]] if gumbel else [])
+    return all(d is not None and d.type == "cuda" for d in devices)
+
+
+WARM = "warm"  # a signature whose first call made no host sync: the next call captures
+EAGER = "eager"  # a signature whose first call synchronised, or a call not replayed
+
+
+class CapturedStep(NamedTuple):
+    """One signature's captured step: the graph, the buffers it reads (the
+    batch's leaves in ``_leaves`` order, ``gumbel``), the gradients it leaves
+    on the parameters, the metrics it packs into one float32 vector with
+    their (name, shape, dtype), and the hand-written kernels' launches it
+    holds (``kernels.LAUNCHES`` counted them once, at the capture)."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: List[torch.Tensor]
+    gumbel: Optional[torch.Tensor]
+    grads: List[Optional[torch.Tensor]]
+    packed: torch.Tensor
+    layout: List[Tuple[str, torch.Size, torch.dtype]]
+    launches: Dict[str, int]
+
+
+class StepGraphs:
+    """The captured train steps of one ``make_train_step`` on the card.
+
+    ``table`` maps (signature, generator) to WARM, EAGER or a
+    ``CapturedStep``. Each capture registers the step's generator with its
+    graph, so that the caller's ``manual_seed`` before a replay reseeds it
+    and the replay draws what the eager step would; it runs on a side stream
+    of its own in ``thread_local`` mode (the prefetch thread goes on
+    enqueueing its gathers meanwhile), and all captures share one memory
+    pool (their replays never overlap), after the caching allocator's unused
+    blocks went back to the card. A replay copies the batch into the
+    graph's buffers and the KL beta into a device scalar the graphs read,
+    launches the graph, adds the launches it holds to ``kernels.REPLAYED``
+    (not on the replay right after the capture, whose launches the wrapper
+    counted while it recorded them), steps the schedule on the host and
+    returns a copy of the packed metrics. The host runs at most two replays
+    ahead of the device: each replay waits on the end of the one two before
+    it, and counts ``train.runahead_waits`` when it has to."""
+
+    RUN_AHEAD = 2
+
+    def __init__(self, device: torch.device, model: nn.Module, params: List[torch.Tensor],
+                 scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]):
+        self.device, self.model, self.params, self.scheduler = device, model, params, scheduler
+        self.table: Dict[tuple, object] = {}
+        self.pool = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.kl = torch.zeros((), dtype=torch.float32, device=device)
+        self.kl_value: Optional[float] = None
+        self.done = [torch.cuda.Event() for _ in range(self.RUN_AHEAD)]
+        self.replays = 0
+
+    def capture(self, key: tuple, body: Callable, raw_batch: Dict, generator: torch.Generator,
+                gumbel: Optional[torch.Tensor]) -> CapturedStep:
+        """Capture ``body`` on copies of the batch and ``gumbel``, the KL
+        scalar and ``generator``; the copies hold this call's batch, so a
+        replay without a new batch runs this call's step. Raises if the
+        capture fails."""
+        inputs = _map_leaves(raw_batch, torch.clone)
+        static_gumbel = None if gumbel is None else gumbel.clone()
+        # the capture allocates the step's memory anew, in the graphs' own
+        # pool, which cannot take the blocks the caching allocator keeps from
+        # the eager calls; those go back to the card first, with the pools of
+        # graphs no longer referenced (a reference cycle may still hold a
+        # finished run's step until the collector runs), so that the peak is
+        # the eager step's and not twice it
+        gc.collect()
+        torch.cuda.empty_cache()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        launched = dict(kernels.LAUNCHES)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                metrics = body(inputs, generator, self.kl, static_gumbel)
+                layout = [(k, v.shape, v.dtype) for k, v in metrics.items()]
+                packed = torch.cat([v.float().reshape(-1) for v in metrics.values()])
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:  # the capture it invalidated: the body's error is raised
+                    pass
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        if self.pool is None:
+            self.pool = graph.pool()
+        captured = CapturedStep(graph, [v for _, v in _leaves(inputs)], static_gumbel,
+                                [p.grad for p in self.params], packed, layout,
+                                {k: n - launched[k] for k, n in kernels.LAUNCHES.items()})
+        self.table[key] = captured
+        return captured
+
+    def replay(self, c: CapturedStep, raw_batch: Optional[Dict], gumbel: Optional[torch.Tensor],
+               kl_beta: float) -> Dict[str, torch.Tensor]:
+        """Run ``c`` on ``raw_batch`` (None: the batch it was captured on)."""
+        slot = self.done[self.replays % self.RUN_AHEAD]
+        if self.replays >= self.RUN_AHEAD and not slot.query():
+            trace.count("train.runahead_waits")
+            slot.synchronize()
+        with trace.span("train.replay"):
+            if raw_batch is not None:
+                torch._foreach_copy_(c.inputs, [v for _, v in _leaves(raw_batch)])
+                if gumbel is not None:
+                    c.gumbel.copy_(gumbel)
+            if kl_beta != self.kl_value:
+                self.kl.fill_(kl_beta)
+                self.kl_value = kl_beta
+            if not self.model.training:
+                self.model.train()
+            c.graph.replay()
+            if raw_batch is not None:  # not the capture's own replay: the wrapper counted those
+                for k, n in c.launches.items():
+                    kernels.REPLAYED[k] += n
+            slot.record()
+            self.replays += 1
+            for p, g in zip(self.params, c.grads):
+                if p.grad is not g:
+                    p.grad = g
+            if self.scheduler is not None:
+                self.scheduler.step()
+            flat = c.packed.clone()
+        out, at = {}, 0
+        for name, shape, dtype in c.layout:
+            n = shape.numel()
+            out[name] = flat[at:at + n].view(shape).to(dtype)
+            at += n
+        return out
+
+
+def _map_leaves(batch: Dict, fn: Callable) -> Dict:
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v) for k, v in batch.items()}
 
 
 def _sharded(model: nn.Module) -> bool:

@@ -222,7 +222,7 @@ class Trainer:
             logger.info("epoch %d (kl_beta=%.5f)", epoch, kl_beta)
             loader.epoch = epoch
             it = DevicePrefetcher(loader, self.device)
-            launches = dict(kernels.LAUNCHES)
+            launches, replayed = dict(kernels.LAUNCHES), dict(kernels.REPLAYED)
             t_epoch = t_log = time.perf_counter()
             n_samples = since_log = epoch_batches = 0
             wait_log = 0.0
@@ -260,11 +260,14 @@ class Trainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt_epoch = time.perf_counter() - t_epoch
-            # this process's kernel launches in the epoch's train steps
+            # this process's kernel launches in the epoch's train steps: the
+            # wrapper's, and apart those that replays of the step's graph ran
             mlog.log({"samples_per_sec": n_samples / dt_epoch, "epoch_time_s": dt_epoch,
                       "prefetch_wait_s": it.wait_s,
                       **{f"kernel_launches_{k}": n - launches[k]
-                         for k, n in kernels.LAUNCHES.items()}}, step, prefix="perf/")
+                         for k, n in kernels.LAUNCHES.items()},
+                      **{f"kernel_replayed_{k}": n - replayed[k]
+                         for k, n in kernels.REPLAYED.items()}}, step, prefix="perf/")
 
             # validation is skipped after a preemption signal: the
             # timeout-and-resubmit contract wants the checkpoint now

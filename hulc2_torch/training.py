@@ -81,8 +81,9 @@ class TrainResult:
 
 class SyntheticRun:
     """The policy of ``cfg``, its optimizer, transform, train step and a source
-    of synthetic batches on ``device``; ``step(raw)`` takes one train step on
-    a batch from ``data`` and returns its metrics as device tensors."""
+    of synthetic batches on ``device``; ``step(raw, eager=False)`` takes one
+    train step on a batch from ``data`` (with ``eager``, not a replay of the
+    step's CUDA graph) and returns its metrics as device tensors."""
 
     def __init__(self, cfg: dict, device=None):
         self.device = device = resolve_device(device)
@@ -117,8 +118,8 @@ class SyntheticRun:
     def next_batch(self) -> Dict:
         return self.data.next_batch()
 
-    def step(self, raw: Dict) -> Dict[str, torch.Tensor]:
-        return self.train_step(raw, self.generator, self.kl_beta)
+    def step(self, raw: Dict, eager: bool = False) -> Dict[str, torch.Tensor]:
+        return self.train_step(raw, self.generator, self.kl_beta, eager=eager)
 
 
 def train(cfg: dict, max_steps: int, device, run_dir: str) -> TrainResult:

@@ -66,7 +66,7 @@ def test_roofline_of_a_profiled_step(cuda_device, tmp_path):
     run = SyntheticRun(cfg, "cuda")
     run.step(run.next_batch())
     kernels.reset_launch_counts()
-    prof, _, _, _ = profile_steps(run, 2, record_shapes=True)
+    prof, _, _, _ = profile_steps(run, 2, eager=True)
     assert kernels.LAUNCHES["shift_normalize"] == 4
     prof.export_chrome_trace(str(tmp_path / "t.json"))
     r = roofline.roofline(tmp_path / "t.json", 2, top=1000, hbm_gbps=3350.0)
