@@ -2,7 +2,10 @@
 ``configs/<config>.json``, ``traffic/<traffic>.json`` (whose ``runner``
 names a module of ``runners/``), ``workloads/<cell>.json`` (the cell's
 limits of the comparisons that decide ``correct``) and
-``metrics/<metric>.py`` (a per-layer metric's reader)."""
+``metrics/<metric>.py`` (a per-layer metric's reader). The reference finds
+each camera's encoder by the ``_name_`` in a configuration:
+``reference/port/models/encoders/<_name_>.py``
+(``reference/port/models/build.build_camera_encoder``)."""
 from __future__ import annotations
 
 import importlib

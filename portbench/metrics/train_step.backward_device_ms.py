@@ -1,0 +1,10 @@
+"""Device ms a step under the program's span ``train.backward`` (the
+gradients' reset, ``loss.backward()``, the zero-fill), in the program
+slice's eager steps: the union of the device activities that the span's
+host interval launched (``harness/program_trace``)."""
+from portbench.harness.program_trace import span_row
+
+
+def read(rec):
+    row = span_row(rec, "eager", "train.backward")
+    return None if row is None or "device_ms" not in row else row["device_ms"]

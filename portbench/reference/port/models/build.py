@@ -1,19 +1,25 @@
 """Model config dict -> the port's ``Hulc2`` (``hulc2_tpu/models/build.py:57-297``),
 cut to what the benchmark's configurations build.
 
-Option for option as the JAX factory builds them: the static camera's
-``vision_network`` and the gripper camera's ``vision_network_gripper`` with
-its nature_cnn, cnn_3_layers or cnn_4_layers trunk, with their activation,
-dropout, L2, sinusoid and temperature options; discrete or continuous plans;
-the transformer, BiLSTM or BiRNN posterior; the logistic decoder over a ReLU
-RNN, GRU, LSTM or MLP, with or without a discrete gripper; the language side
-the CLIP text tower over token ids, ``lang_mlp`` over precomputed
-embeddings, or none; GCBC (``use_plan=false``); the CLIP aux loss and the
-state, BC-Z, MIA and task-CE heads; the identity proprio slice. The
-embedding's width counts each encoder's ``visual_features``
-(``perceptual_latent_size``). The pretrained camera encoders, the depth and
-tactile cameras and the deterministic decoder of the port are not copied:
-no configuration of the benchmark names them, and this factory refuses them.
+Option for option as the JAX factory builds them: discrete or continuous
+plans; the transformer, BiLSTM or BiRNN posterior; the logistic decoder
+over a ReLU RNN, GRU, LSTM or MLP, with or without a discrete gripper; the
+language side the CLIP text tower over token ids, ``lang_mlp`` over
+precomputed embeddings, or none; GCBC (``use_plan=false``); the CLIP aux
+loss and the state, BC-Z, MIA and task-CE heads; the identity proprio
+slice. The embedding's width counts each encoder's ``visual_features``
+(``perceptual_latent_size``). The depth and tactile cameras and the
+deterministic decoder of the port are not copied, and this factory refuses
+them.
+
+Each RGB camera's encoder is found by the ``_name_`` of its config
+(``build_camera_encoder``): ``encoders/<_name_>.py`` builds it from the
+config and the camera's frame side after the train transform. The static
+camera's ``vision_network`` and the gripper camera's
+``vision_network_gripper`` (nature_cnn, cnn_3_layers or cnn_4_layers
+trunk; activation, dropout, L2, sinusoid and temperature options) are the
+first two; another encoder is another file there. A name with no file is
+refused.
 
 flax infers every input width at init; the port sizes its layers from the
 real widths: the proprio slice is ``robot_obs[..., :n_state_obs]`` of the
@@ -28,9 +34,13 @@ are always added), the BiLSTM/BiRNN posteriors' widths (2048, 2 layers),
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import importlib
+import re
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 from portbench.reference.port.models.aux_nets import (BCZLangDecoder, LangTaskHead, MIALangDiscriminator,
                                          ProjVisLang, StateDecoder)
@@ -44,7 +54,6 @@ from portbench.reference.port.models.layers import init_weights_
 from portbench.reference.port.models.perceptual import ConcatEncoders
 from portbench.reference.port.models.plan_nets import (PlanProposalNetwork, PlanRecognitionBiLSTM,
                                           PlanRecognitionBiRNN, PlanRecognitionTransformer)
-from portbench.reference.port.models.vision import VisionNetwork, VisionNetworkGripper
 
 ROBOT_OBS_DIM, SCENE_OBS_DIM = 15, 24
 
@@ -55,17 +64,26 @@ def _without(cfg: dict, *keys: str) -> dict:
     return {k: v for k, v in cfg.items() if k not in keys}
 
 
-def build_static_encoder(cfg: dict):
-    """The static camera's encoder (``vision_network``)."""
-    if cfg["_name_"] != "vision_network":
-        raise ValueError(f"camera encoder {cfg['_name_']!r} is not copied into the reference")
-    return VisionNetwork(**_without(cfg, "_name_"))
+ENCODERS = "portbench.reference.port.models.encoders"  # the package of the camera encoders
+MODULE_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
 
 
-def build_gripper_encoder(cfg: dict, gripper_hw: int):
-    if cfg["_name_"] != "vision_network_gripper":
-        raise ValueError(f"camera encoder {cfg['_name_']!r} is not copied into the reference")
-    return VisionNetworkGripper(gripper_hw, **_without(cfg, "_name_"))
+def build_camera_encoder(cfg: dict, hw: int) -> nn.Module:
+    """The camera encoder that ``cfg["_name_"]`` names: ``build(cfg, hw)`` of
+    ``encoders/<_name_>.py``, ``hw`` the camera's frame side after the train
+    transform. Raises ``ValueError`` naming the missing file."""
+    name = cfg["_name_"]
+    if not isinstance(name, str) or not MODULE_NAME.match(name):
+        raise ValueError(f"camera encoder {name!r} is not a module name")
+    path = Path(__file__).resolve().parent / "encoders" / f"{name}.py"
+    try:
+        module = importlib.import_module(f"{ENCODERS}.{name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"{ENCODERS}.{name}":
+            raise
+        raise ValueError(f"camera encoder {name!r} is not copied into the reference: "
+                         f"no file {path}") from None
+    return module.build(cfg, hw)
 
 
 def robot_obs_width(dm_cfg: dict) -> int:
@@ -81,17 +99,18 @@ def robot_obs_width(dm_cfg: dict) -> int:
     return sum(len(range(total)[lo:hi]) for lo, hi in dm_cfg["proprioception_dims"]["keep_indices"])
 
 
-def build_perceptual_encoder(pe_cfg: dict, gripper_hw: int,
+def build_perceptual_encoder(pe_cfg: dict, camera_hw: Dict[str, int],
                              robot_obs_dim: Optional[int]) -> Tuple[ConcatEncoders, int]:
-    """(``ConcatEncoders``, the embedding's width)."""
+    """(``ConcatEncoders``, the embedding's width); ``camera_hw`` is each RGB
+    camera's frame side after the train transform."""
     for cam in ("depth_static", "depth_gripper", "tactile"):
         if pe_cfg.get(cam) is not None:
             raise ValueError(f"the {cam} camera is not copied into the reference")
-    static = build_static_encoder(pe_cfg["rgb_static"])
+    static = build_camera_encoder(pe_cfg["rgb_static"], camera_hw["rgb_static"])
     width = pe_cfg["rgb_static"]["visual_features"]
     kw = {}
     if pe_cfg.get("rgb_gripper") is not None:
-        kw["rgb_gripper"] = build_gripper_encoder(pe_cfg["rgb_gripper"], gripper_hw)
+        kw["rgb_gripper"] = build_camera_encoder(pe_cfg["rgb_gripper"], camera_hw["rgb_gripper"])
         width += pe_cfg["rgb_gripper"]["visual_features"]
     proprio = pe_cfg.get("proprio")
     if proprio:
@@ -161,16 +180,16 @@ def build_lang_net(le_cfg: Optional[dict], in_features: int):
     raise ValueError(f"unknown language_encoder {name!r}")
 
 
-def build_policy(model_cfg: dict, gripper_hw: int = 64, seed: int = 42,
+def build_policy(model_cfg: dict, camera_hw: Dict[str, int], seed: int = 42,
                  robot_obs_dim: Optional[int] = None) -> Hulc2:
     """The policy on the CPU, initialised from ``torch.Generator().manual_seed(seed)``;
-    the caller moves it to its device. ``gripper_hw`` is the gripper
-    camera's image size (it fixes the flatten width of a trunk that flattens
-    its conv output); ``robot_obs_dim`` is the processed robot_obs's width
-    (``robot_obs_width``), by default the proprio encoder's
-    ``n_state_obs``."""
+    the caller moves it to its device. ``camera_hw`` is each RGB camera's
+    frame side after the train transform (``camera_sizes``), which an
+    encoder may be built for; ``robot_obs_dim`` is the processed
+    robot_obs's width (``robot_obs_width``), by default the proprio
+    encoder's ``n_state_obs``."""
     pe_cfg = model_cfg["perceptual_encoder"]
-    perceptual, emb_dim = build_perceptual_encoder(pe_cfg, gripper_hw, robot_obs_dim)
+    perceptual, emb_dim = build_perceptual_encoder(pe_cfg, camera_hw, robot_obs_dim)
     dist = make_distribution(model_cfg["distribution"])
     use_plan = bool(model_cfg.get("use_plan", True))
     use_clip = bool(model_cfg.get("use_clip_auxiliary_loss", True))
@@ -228,6 +247,6 @@ def build_policy_for(cfg: dict, seed: Optional[int] = None) -> Hulc2:
     from portbench.reference.port.data.device_transforms import camera_sizes
 
     dm_cfg = cfg["datamodule"]
-    return build_policy(cfg["model"], gripper_hw=camera_sizes(dm_cfg["transforms"])["rgb_gripper"],
+    return build_policy(cfg["model"], camera_sizes(dm_cfg["transforms"]),
                         seed=cfg["seed"] if seed is None else seed,
                         robot_obs_dim=robot_obs_width(dm_cfg))

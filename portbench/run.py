@@ -11,7 +11,8 @@ program's outputs against the plain reference (``reference/``). With
 ``--trace 0`` the result line carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, each read by ``metrics/<name>.py`` from
 what the runner recorded. The last lines on standard error give each number
-compared beside its limit; the last line on standard output is one JSON
+compared beside its limit, after the numbers read and not compared in the
+cell (``read``); the last line on standard output is one JSON
 object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``,
 [``breakdown``] and ``checks``.
 
@@ -130,6 +131,9 @@ def main(argv=None) -> int:
     out["checks"] = checks
     print("detail " + json.dumps({"checks": rec.get("check_detail"), **rec.get("diag", {})}),
           file=sys.stderr)
+    for name in sorted(set(rec["checks"]) - set(checks)):
+        print(f"read {name}: {float(rec['checks'][name])!r} (not compared in this cell)",
+              file=sys.stderr)
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
     sys.stderr.flush()

@@ -15,8 +15,10 @@ with a CUDA event after each step; it ends in a device synchronise. No
 validation and no checkpoint.
 
 With ``--trace 1`` a profiled slice of ``profile_steps`` more steps
-follows the window, and the FLOPs of the reference step are counted at the
-batch's shapes.
+follows the window (``harness/trace``), then the program slice: as many
+steps again with the program's tracer on, and as many eager steps under the
+profiler (``harness/program_trace``); and the FLOPs of the reference step
+are counted at the batch's shapes.
 
 Once the window has closed and the memory peak is read, the program's state
 is freed and the reference (``reference/``) works out the first three
@@ -35,7 +37,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench.harness import check, counts, dataset, trace
+from portbench.harness import check, counts, dataset, program_trace, trace
 from portbench.harness.weights import make_weights, param_shapes
 from portbench.reference.data import ReferenceBatches
 from portbench.reference.train_step import ReferenceTrainStep
@@ -148,6 +150,13 @@ def _slices(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         else:
             out[name] = t
     return out
+
+
+def _largest(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The largest absolute element of each leaf (whole, not by slice)."""
+    names = sorted(tensors)
+    return dict(zip(names, torch.stack([tensors[n].detach().abs().amax().float()
+                                        for n in names]).tolist()))
 
 
 def _norms(tensors: Dict[str, torch.Tensor], scale: float = 1.0) -> Dict[str, float]:
@@ -270,7 +279,9 @@ def run(ctx) -> dict:
             prog_grad = _norms({n: state[q]["exp_avg"] for n, q in params.items() if q in state},
                                1.0 / (1.0 - BETA1))
         if k == CHECK_STEPS - 1:
-            prog_update = _norms({n: q.detach() - weights[n].to(device) for n, q in params.items()})
+            change = {n: q.detach() - weights[n].to(device) for n, q in params.items()}
+            prog_update, prog_change = _norms(change), _largest(change)
+            del change  # a copy of every leaf, which would stay on the card through the window
     k += 1
     prog_losses = [float(v) for v in losses]
     _sync(device)
@@ -347,6 +358,17 @@ def run(ctx) -> dict:
             t_end = time.perf_counter()
         layers["profile"] = trace.read_slice(prof, t_end, t_end - t1, batches, spans)
 
+        def run_step(raw, eager):
+            nonlocal k
+            gen.manual_seed(step_seed(seed, 0, k))
+            k += 1
+            return step(raw, gen, kl_beta, eager=True) if eager else step(raw, gen, kl_beta)
+
+        program = program_trace.program_slice(feed.next, feed.close, run_step, batches, device)
+        if program is not None:
+            layers["program"] = program
+            rec["diag"]["program"] = program_trace.summary(program)
+
     # the program's own crops of the first batch, for the kernel's check
     transform = trainer._transform(True)
     gen.manual_seed(step_seed(seed, 0, 0))
@@ -374,7 +396,8 @@ def run(ctx) -> dict:
                     for c in readings["crops"])
     rec["checks"], rec["check_detail"] = compare(
         {"losses": prog_losses, "grad": prog_grad, "update": prog_update,
-         "metrics1": prog_metrics1}, readings, ctx.extra.get("leaf_detail", False))
+         "change": prog_change, "metrics1": prog_metrics1}, readings,
+        ctx.extra.get("leaf_detail", False))
     rec["checks"].update(batch_diff=batch_diff, crop_diff=crop_diff)
     if ctx.trace:
         hw = {c: tuple(kept[0][c].shape[2:4]) for c in cfg["datamodule"]["observation_space"]["rgb_obs"]}
@@ -387,8 +410,10 @@ def reference_readings(cfg, root, index_dir, seed: int, weights: Dict[str, torch
                        kl_beta: float, crop_dtype, quantize=None):
     """(the reference step, its readings): the first batches worked out from
     the dataset's files and the tiled index, the crops of the first in ``crop_dtype``, the losses
-    of the first steps, each leaf's first gradient norm and each leaf's
-    change after the steps, from ``weights`` (on the host)."""
+    of the first steps, each leaf's first gradient norm, the leaves the
+    first step gives a gradient (``trained``), and each leaf's change after
+    the steps, by norm and by its largest element, from ``weights`` (on the
+    host)."""
     plan = ReferenceBatches(cfg["datamodule"], root, seed, index_dir)
     batches = [plan.batch(0, b) for b in range(CHECK_STEPS)]
     ref = ReferenceTrainStep(cfg, {k: v.to(device) for k, v in weights.items()}, root, device,
@@ -401,12 +426,13 @@ def reference_readings(cfg, root, index_dir, seed: int, weights: Dict[str, torch
         out = ref.step(_to(batches[i], device), g, kl_beta, plans[i])
         losses.append(float(out["loss"]))
         if i == 0:
-            grad = _norms(out["grads"])
+            grad, trained = _norms(out["grads"]), sorted(out["grads"])
             metrics1 = {m: float(v) for m, v in out["metrics"].items()}
         del out
-    update = _norms({n: q - weights[n].to(device) for n, q in ref.params().items()})
+    change = {n: q - weights[n].to(device) for n, q in ref.params().items()}
     return ref, {"batches": batches, "crops": crops, "losses": losses, "grad": grad,
-                 "update": update, "metrics1": metrics1}
+                 "trained": trained, "update": _norms(change), "change": _largest(change),
+                 "metrics1": metrics1}
 
 
 def compare(prog: dict, ref: dict, leaves: bool = False):
@@ -419,8 +445,11 @@ def compare(prog: dict, ref: dict, leaves: bool = False):
     is nought to rounding; a product in a lower precision breaks softmax's
     shift invariance and moves them). Gaps of the gradient are against the
     larger of the leaf's reference norm and the median leaf's over all
-    leaves. The detail holds what is read and not compared: the worst
-    leaf's gradient gap over all leaves (``grad_gap``), the later steps'
+    leaves. ``frozen_update`` is the largest absolute change after the steps
+    of any of the program's leaves that the reference's first step gives no
+    gradient (``ref["trained"]``): a trunk the configuration freezes, held
+    to 0 where a cell's limits name it. The detail holds what is read and
+    not compared: the worst leaf's gradient gap over all leaves (``grad_gap``), the later steps'
     loss gaps, medians and quantiles, and with ``leaves`` each leaf's gaps
     and reference gradient norm. A cell's limits name the numbers it
     compares."""
@@ -432,8 +461,12 @@ def compare(prog: dict, ref: dict, leaves: bool = False):
     update_leaf = max(update_gaps, key=lambda k: (math.isnan(update_gaps[k]), update_gaps[k]))
     still_leaf = max(still, key=lambda k: (math.isnan(grad_gaps[k]), grad_gaps[k])) if still else None
     gaps = [abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])]
+    frozen = sorted(set(prog["change"]) - set(ref["trained"]))
+    frozen_leaf = max(frozen, key=lambda k: (math.isnan(prog["change"][k]), prog["change"][k]),
+                      default=None)
     numbers = {"loss1_gap": gaps[0], "update_gap": update_gaps[update_leaf],
-               "still_grad_gap": grad_gaps[still_leaf] if still else 0.0}
+               "still_grad_gap": grad_gaps[still_leaf] if still else 0.0,
+               "frozen_update": prog["change"][frozen_leaf] if frozen else 0.0}
     detail = {"loss_gaps": gaps, "prog_losses": prog["losses"], "ref_losses": ref["losses"],
               "grad_gap": grad_gaps[grad_leaf], "grad_leaf": grad_leaf,
               "grad_gap_median": statistics.median(grad_gaps.values()),
@@ -441,6 +474,7 @@ def compare(prog: dict, ref: dict, leaves: bool = False):
               "update_leaf": update_leaf, "update_gap_median": statistics.median(update_gaps.values()),
               "update_gap_q": _quantiles(update_gaps.values()),
               "still_leaf": still_leaf, "still_leaves": len(still), "leaves": len(ref["grad"]),
+              "frozen_leaf": frozen_leaf, "frozen_leaves": len(frozen),
               "global_grad_gap": abs(_global(prog["grad"]) - _global(ref["grad"])) / _global(ref["grad"]),
               "metric_gaps1": {m: abs(prog["metrics1"][m] - v) / max(abs(v), 1e-12)
                                for m, v in ref.get("metrics1", {}).items()

@@ -39,6 +39,9 @@ def test_train_cell_runs_and_is_correct(name, tmp_path):
     # on the CPU the program computes in fp32 as the reference does, op for
     # op: every number reads 0 to rounding
     assert all(c["value"] <= CPU_LIMIT for c in checks.values()), checks
+    # no leaf of the flagship is left without a gradient: nothing to hold still
+    assert rec["checks"]["frozen_update"] == 0.0
+    assert rec["check_detail"]["frozen_leaves"] == 0
 
 
 @pytest.mark.parametrize("name", TRAIN_CELLS)
