@@ -6,6 +6,12 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from hulc2_torch.core import trace
+
+# each camera's span, named once so that a span off costs a lookup
+SPANS = {key: f"model.encode.{key}" for key in
+         ("rgb_static", "depth_static", "rgb_gripper", "depth_gripper", "rgb_tactile")}
+
 
 class ConcatEncoders(nn.Module):
     """Per-camera encoders over (B, S, H, W, C) windows (depth maps (B, S, H,
@@ -16,7 +22,9 @@ class ConcatEncoders(nn.Module):
     tactile encoder reads ``rgb_obs["rgb_tactile"]``, and the proprio
     part is the identity slice ``robot_obs[..., :proprio_dim]`` of the
     processed robot_obs (narrower when robot_obs is). The encoders' names
-    are the reference's state_dict names."""
+    are the reference's state_dict names. Each camera's encoder runs in the
+    tracer's span ``model.encode.<camera>`` (``core/trace``; the model puts
+    the whole encoder in ``model.encode``)."""
 
     def __init__(self, rgb_static: nn.Module, rgb_gripper: Optional[nn.Module] = None,
                  depth_static: Optional[nn.Module] = None,
@@ -50,8 +58,11 @@ class ConcatEncoders(nn.Module):
                  (self.rgb_gripper_encoder, rgb_obs, "rgb_gripper"),
                  (self.depth_gripper_encoder, depth_obs, "depth_gripper"),
                  (self.tactile_encoder, rgb_obs, "rgb_tactile")]
-        feats = [self._encode(enc, obs[key], deterministic, generator)
-                 for enc, obs, key in parts if enc is not None]
+        feats = []
+        for enc, obs, key in parts:
+            if enc is not None:
+                with trace.span(SPANS[key]):
+                    feats.append(self._encode(enc, obs[key], deterministic, generator))
         if self.proprio_dim > 0:
             feats.append(robot_obs[..., :self.proprio_dim])
         return torch.cat(feats, dim=-1)

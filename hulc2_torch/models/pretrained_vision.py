@@ -11,11 +11,13 @@ Weights come from random init or from the upstream checkpoints through
 A frozen trunk (``freeze_backbone``; ``VisionResNetAff``'s always) runs
 under ``torch.no_grad()``: the JAX modules stop the gradient at the pooled
 feature, so nothing before it is differentiated, and the port does not build
-that graph. Its parameters stay in the model and so in the optimizer, as
-they stay in JAX's optax tree: Adam and SGD leave them as they are, AdamW
-decays them (``train/steps.make_train_step`` gives a parameter without a
-gradient a zero one when the optimizer decays), and the global norm counts
-their zero gradients.
+that graph; the tracer (``core/trace``) puts it in the span
+``vision.frozen_trunk`` and adds its frames to the counter
+``vision.frozen_trunk_frames``. Its parameters stay in the model and so in
+the optimizer, as they stay in JAX's optax tree: Adam and SGD leave them as
+they are, AdamW decays them (``train/steps.make_train_step`` gives a
+parameter without a gradient a zero one when the optimizer decays), and the
+global norm counts their zero gradients.
 
 ``compute_dtype`` (the JAX factories' key) sets the encoder's own
 precision on the card: ``float32`` runs it with autocast off, ``bfloat16``
@@ -31,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from hulc2_torch.core import trace
 from hulc2_torch.models.layers import Dense
 from hulc2_torch.models.resnet import ResNet
 
@@ -58,7 +61,8 @@ class _Pretrained(nn.Module):
     def frozen(self, fn, x: torch.Tensor):
         if not self.freeze_backbone:
             return fn(x)
-        with torch.no_grad():
+        trace.count("vision.frozen_trunk_frames", x.shape[0])
+        with trace.span("vision.frozen_trunk"), torch.no_grad():
             return fn(x)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
