@@ -11,6 +11,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bit, then its device time beside the memory-traffic bound, the plain
    version's and that of a bf16 cast of the same bytes (CUDA events around 50
    back-to-back launches, ``hulc2_torch.tools.bench_shift_normalize``);
+   then the 2x2 average pool kernel (``csrc/avg_pool2x2.cu``) against
+   ``F.avg_pool2d``, bit for bit in bf16 and fp32, at the seven pools of CLIP
+   RN50's trunk at 224 px with 2,048 frames, and in bf16 its device time
+   beside its bytes bound and ``F.avg_pool2d``'s (the plain version and the
+   library call are that one call);
 4. a small-width policy on the card in fp32 (TF32 off) against the same
    policy on the CPU, same weights, batches and draws: the train-step losses
    must agree;
@@ -18,8 +23,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    forward in fp32 on the card: the losses must agree within 5%;
 6. the main path: ``python -m hulc2_torch.training --synthetic`` at the full
    flagship width for a few steps, with every kernel launch count reset just
-   before and read just after: losses finite, parameters moved, and
-   shift_normalize launched exactly twice per step;
+   before and read just after: losses finite, parameters moved,
+   shift_normalize launched exactly twice per step and avg_pool2x2 never
+   (the flagship builds no CLIP tower);
 7. (a) the kernel at pad 0, the evaluation's val transform with the preset's
    val mean and std, against its plain version on 1, 2, 4, 8 and 32 frames of
    96x96 and 64x64 (1-8 are the evaluations' frames per camera and dispatch),
@@ -172,7 +178,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tower (``datamodule.transforms=clip``, 224 px), ENCODER_STEPS synthetic
    train steps each through ``python -m hulc2_torch.training --synthetic``:
    losses finite, the frozen tower bit for bit as initialised, 2 launches a
-   step; the step's wall time and device busy;
+   step, and the RN50's frozen trunk 7 pool launches a step (the ViT's 0);
+   the step's wall time and device busy;
 38. (af) ``static_rgb_tactile`` the same way, with 6-channel tactile frames
    of 160x120 that the ``resize 70`` op resizes: 1 launch a step;
 39. (ag) the affordance package's options, from here on: for a small fp32
@@ -405,6 +412,10 @@ RW_SHAPES = {"real_world_r3m rgb_static": (2048, 200, 200, 0, [0.0], [1.0]),
              "real_world_r3m rgb_gripper": (2048, 84, 84, 0, [0.0], [1.0])}
 ISOLATION_BATCHES, BUSY_STEPS = 10, 3
 ENCODER_STEPS = 10
+# (C, H = W) of CLIP RN50's seven 2x2 pools a frame at 224 px: the stem's,
+# then layer2..layer4's main path and downsample
+TRUNK_POOLS = [(64, 112), (128, 56), (256, 56), (256, 28), (512, 28), (512, 14), (1024, 14)]
+TRUNK_FRAMES = 2048  # the static_clip train step's 64 windows of 32 frames
 ENCODER_RUN = BUILD / "chip_smoke_encoders"
 TACTILE_HW = (160, 120)
 CLIP_SMALL = ('model.perceptual_encoder.rgb_static.tower_kwargs='
@@ -590,6 +601,63 @@ def phase_kernel_vs_plain(dev: torch.device) -> dict:
     return {"bound_by": bound_by, **totals}
 
 
+def phase_pool_kernel(dev: torch.device) -> dict:
+    """The 2x2 average pool kernel against ``F.avg_pool2d``, bit for bit in
+    bf16 and fp32, at CLIP RN50's seven trunk pools with TRUNK_FRAMES frames;
+    then, in bf16 (the trunk's autocast), device times per launch of the
+    kernel and of ``F.avg_pool2d`` (``bench_shift_normalize.device_ms``: 50
+    back-to-back launches between one pair of CUDA events; every input is
+    over 800 MB, so each launch finds it cold in the 50 MB L2) beside the
+    bytes bound: each input element read once, each output written once, at
+    3.35 TB/s. The plain version is ``F.avg_pool2d`` itself, so the plain and
+    the library time are one measurement."""
+    import torch.nn.functional as F
+
+    from hulc2_torch.ops import pool
+    from hulc2_torch.tools import bench_shift_normalize as bench
+
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "gbytes": 0.0, "max_abs_err": 0.0,
+              "shapes": {}}
+    n = TRUNK_FRAMES
+    g = torch.Generator(device=dev).manual_seed(24)
+    for c, hw in TRUNK_POOLS:
+        x = torch.randn((n, hw, hw, c), generator=g, device=dev,
+                        dtype=torch.bfloat16).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                got, want = pool.avg_pool2x2(xd), F.avg_pool2d(xd, 2)
+                torch.cuda.synchronize(dev)
+                # tolerance 0: the kernel sums in ATen's order and rounds once
+                err = (got.float() - want.float()).abs().max().item()
+                if not torch.equal(got, want) or got.stride() != want.stride():
+                    fail(f"avg_pool2x2 {c}x{hw}x{hw} {dtype}: differs from F.avg_pool2d "
+                         f"(max_abs_err {err:.3g})")
+                totals["max_abs_err"] = max(totals["max_abs_err"], err)
+                del xd, got, want
+            ms = bench.device_ms(lambda k: pool.avg_pool2x2(x))
+            plain_ms = bench.device_ms(lambda k: pool.avg_pool2x2_plain(x))
+        gbytes = (x.numel() + x.numel() // 4) * x.element_size() / 1e9
+        bound_ms = gbytes * 1e9 / bench.HBM_BYTES_PER_S * 1e3
+        print(f"[kernel] avg_pool2x2 {n}x{c}x{hw}x{hw} bf16 channels_last: bit-equal to "
+              f"F.avg_pool2d in bf16 and fp32; device time per launch: kernel {ms:.4f} ms "
+              f"({gbytes / ms:.3f} TB/s), bound {bound_ms:.4f} ms (bytes, "
+              f"{100 * bound_ms / ms:.1f}% of roofline); F.avg_pool2d {plain_ms:.4f} ms "
+              f"({gbytes / plain_ms:.3f} TB/s)", flush=True)
+        totals["shapes"][f"{c}x{hw}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms}
+        totals["ms"] += ms
+        totals["plain_ms"] += plain_ms
+        totals["bound_ms"] += bound_ms
+        totals["gbytes"] += gbytes
+        del x
+    print(f"[kernel] avg_pool2x2, the trunk's seven pools over {n} frames (one train step): "
+          f"kernel {totals['ms']:.4f} ms ({totals['gbytes'] / totals['ms']:.3f} TB/s, "
+          f"{100 * totals['bound_ms'] / totals['ms']:.1f}% of the bound), bound "
+          f"{totals['bound_ms']:.4f} ms ({totals['gbytes']:.2f} GB at 3.35 TB/s), F.avg_pool2d "
+          f"{totals['plain_ms']:.4f} ms", flush=True)
+    return totals
+
+
 SMALL_OVERRIDES = [
     "model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",
     "model.plan_recognition.fc_hidden_size=64", "model.plan_recognition.dropout_p=0.0",
@@ -710,9 +778,9 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     if launches["shift_normalize"] != 2 * MAIN_STEPS:
         fail(f"shift_normalize launched {launches['shift_normalize']} times in "
              f"{MAIN_STEPS} steps, expected {2 * MAIN_STEPS}")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    if launches["avg_pool2x2"] != 0:
+        fail(f"avg_pool2x2 launched {launches['avg_pool2x2']} times on the flagship's path, "
+             f"which builds no CLIP tower")
     cfg = flagship_config()
     fresh = build_policy(cfg["model"], seed=cfg["seed"]).state_dict()
     trained = result.model.state_dict()
@@ -2201,13 +2269,14 @@ def phase_isolation(dev: torch.device, card: str) -> dict:
 
 
 def phase_encoder_run(dev: torch.device, card: str, tag: str, overrides: list,
-                      per_step: int, frozen: str) -> dict:
+                      per_step: int, frozen: str, pools: int = 0) -> dict:
     """(ae), (af) ENCODER_STEPS synthetic train steps of ``cfg_low_level``
     with ``overrides`` at full width through ``python -m hulc2_torch.training
     --synthetic``, counts reset just before and read just after: losses
     finite, the ``frozen`` submodule of the perceptual encoder bit for bit as
-    initialised, ``per_step`` launches a step; then BUSY_STEPS more steps of
-    the same run under the profiler for the device busy."""
+    initialised, ``per_step`` launches a step and ``pools`` of avg_pool2x2;
+    then BUSY_STEPS more steps of the same run under the profiler for the
+    device busy."""
     from hulc2_torch import kernels, training
     from hulc2_torch.core.config import compose
     from hulc2_torch.models.build import build_policy_for
@@ -2226,6 +2295,9 @@ def phase_encoder_run(dev: torch.device, card: str, tag: str, overrides: list,
     if launches["shift_normalize"] != per_step * ENCODER_STEPS:
         fail(f"{tag}: shift_normalize launched {launches['shift_normalize']} times in "
              f"{ENCODER_STEPS} steps, expected {per_step * ENCODER_STEPS}")
+    if launches["avg_pool2x2"] != pools * ENCODER_STEPS:
+        fail(f"{tag}: avg_pool2x2 launched {launches['avg_pool2x2']} times in "
+             f"{ENCODER_STEPS} steps, expected {pools * ENCODER_STEPS}")
     cfg = compose("cfg_low_level", overrides)
     init = dict(build_policy_for(cfg).perceptual_encoder.named_modules())[frozen].state_dict()
     now = dict(result.model.perceptual_encoder.named_modules())[frozen].state_dict()
@@ -2290,7 +2362,7 @@ def slice_phases(dev: torch.device, card: str) -> tuple:
     isolation = phase_isolation(dev, card)
     rn50 = phase_encoder_run(dev, card, "clip_rn50", ["model/perceptual_encoder=static_clip",
                                                        "datamodule.transforms=clip"], 2,
-                             "rgb_static_encoder.clip")
+                             "rgb_static_encoder.clip", pools=len(TRUNK_POOLS))
     vit = phase_encoder_run(dev, card, "clip_vit", [
         "model/perceptual_encoder=static_clip", "datamodule.transforms=clip",
         'model.perceptual_encoder.rgb_static.model_name="ViT-B/32"'], 2,
@@ -3362,6 +3434,7 @@ def main() -> int:
 
     phase_build()
     kernel = phase_kernel_vs_plain(dev)
+    pool_kernel = phase_pool_kernel(dev)
     phase_reference(dev)
     phase_bf16_vs_fp32(dev)
     launches = phase_main_path(dev, card)
@@ -3504,8 +3577,29 @@ def main() -> int:
           f"rank's train step (1024 frames of 96 px pad 4 and of 64 px pad 3), "
           f"cfg_low_level_roofline the kernel's share of the memory rate in (aq)'s profiled step "
           f"beside (q)'s share of its bound", flush=True)
+    pool_entry = {
+        "name": "avg_pool2x2",
+        "route": "cuda",
+        "source": "hulc2_torch/csrc/avg_pool2x2.cu",
+        "replaces": None,
+        "launches": option_paths["clip_rn50_train"]["launches"]["avg_pool2x2"],
+        "max_abs_err": pool_kernel["max_abs_err"],
+        "ms": pool_kernel["ms"],
+        "plain_ms": pool_kernel["plain_ms"],
+        "bound_ms": pool_kernel["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": pool_kernel["plain_ms"],
+        "trunk_pools": pool_kernel["shapes"],
+        "launches_by_path": {"train": launches["avg_pool2x2"],
+                             **{k: r["launches"]["avg_pool2x2"] for k, r in option_paths.items()
+                                if "avg_pool2x2" in r["launches"]}},
+    }
+    print(f"[kernels] avg_pool2x2: ms, plain_ms (F.avg_pool2d, also library_ms) and bound_ms "
+          f"are device times of the RN50 trunk's seven pools over {TRUNK_FRAMES} frames in bf16; "
+          f"launches are (ae)'s RN50 run's, launches_by_path each main-path run's that counts "
+          f"the kernel", flush=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, pool_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"shift_normalize": 0}
+LAUNCHES: Dict[str, int] = {"shift_normalize": 0, "avg_pool2x2": 0}
 REPLAYED: Dict[str, int] = {name: 0 for name in LAUNCHES}
 
 

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = {"shift_normalize": "shift_normalize.cu", "frameloader": "frameloader.cpp"}
+SOURCES = {"shift_normalize": "shift_normalize.cu", "avg_pool2x2": "avg_pool2x2.cu",
+           "frameloader": "frameloader.cpp"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -14,6 +14,12 @@ port sizes it from the input size the tower is built for
 Parameter names are the JAX module's (``layer1_0.conv1``, ``ds_conv``,
 ``attnpool.q_proj``); ``utils/convert.convert_clip_visual`` maps an
 OpenAI checkpoint's ``visual.*`` names onto them.
+
+The 2x2 pools of a channels_last tensor on the card with gradients disabled
+(the frozen trunk of a camera encoder) run in the hand-written kernel
+``ops/pool.avg_pool2x2``, which raises on a dtype or width it does not take;
+every other pool (the detector's NCHW or trainable tower, the CPU) runs in
+``F.avg_pool2d``. Both give the same bits.
 """
 from __future__ import annotations
 
@@ -25,6 +31,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hulc2_torch.models.resnet import NoBiasConv, TorchBatchNorm, conv_bn, lecun_normal_
+from hulc2_torch.ops import pool
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``F.avg_pool2d(x, k)``; a 2x2 one in the kernel where ``x`` is a
+    channels_last tensor on the card and gradients are disabled (the test
+    ``models/resnet.conv_bn`` makes for cuDNN's fused path, and the layout)."""
+    if (k == 2 and x.is_cuda and not torch.is_grad_enabled()
+            and x.is_contiguous(memory_format=torch.channels_last)):
+        return pool.avg_pool2x2(x)
+    return F.avg_pool2d(x, k)
 
 
 class LecunLinear(nn.Linear):
@@ -55,11 +72,11 @@ class ClipBottleneck(nn.Module):
         y = conv_bn(self.conv1, self.bn1, x, relu=True)
         y = conv_bn(self.conv2, self.bn2, y, relu=True)
         if self.stride > 1:
-            y = F.avg_pool2d(y, self.stride)
+            y = avg_pool(y, self.stride)
         identity = x
         if self.downsample:
             if self.stride > 1:
-                identity = F.avg_pool2d(identity, self.stride)
+                identity = avg_pool(identity, self.stride)
             identity = conv_bn(self.ds_conv, self.ds_bn, identity)
         return conv_bn(self.conv3, self.bn3, y, relu=True, residual=identity)
 
@@ -138,7 +155,7 @@ class ClipModifiedResNet(nn.Module):
         y = conv_bn(self.conv1, self.bn1, x, relu=True)
         y = conv_bn(self.conv2, self.bn2, y, relu=True)
         y = conv_bn(self.conv3, self.bn3, y, relu=True)
-        y = F.avg_pool2d(y, 2)
+        y = avg_pool(y, 2)
         feats = [y]
         for stage, n_blocks in enumerate(self.layers):
             for b in range(n_blocks):
