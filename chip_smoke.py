@@ -301,6 +301,8 @@ from pathlib import Path
 
 import torch
 
+from hulc2_torch.tools import profiling
+
 MAIN_STEPS = 10
 WARM_STEPS = 2  # steps 0 and 1 carry cuDNN's algorithm search and allocator growth
 BUILD = Path(__file__).resolve().parent / "build"
@@ -536,12 +538,6 @@ BF16_PRESETS = {
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def phase_build() -> None:
@@ -2079,25 +2075,6 @@ def shm_segments() -> list:
     return sorted(p.name for p in Path(SHM_DIR).glob(f"{SEGMENT_PREFIX}*"))
 
 
-def device_busy_ms(step, n: int) -> float:
-    """Device-busy ms per call of ``step`` (the union of the kernels' and
-    copies' intervals under ``torch.profiler``, as ``tools/profile_train``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from hulc2_torch.tools.profile_train import _union_us
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    if not events:
-        fail("the profiler recorded no device activity")
-    return _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3 / n
-
-
 def phase_pretrained_reference(dev: torch.device) -> None:
     """(ab) Two fp32 train steps of a small model of each pretrained encoder
     preset on the card and on the CPU, same weights, one fixed batch of the
@@ -2229,8 +2206,8 @@ def phase_isolation(dev: torch.device, card: str) -> dict:
                     wait.append(1e3 * (it.wait_s - w0))
                 elif i == ISOLATION_BATCHES:
                     rest = [raw] + [next(it) for _ in range(BUSY_STEPS - 1)]
-                    busy = device_busy_ms(lambda: step(rest.pop(0), trainer.generator, 0.01),
-                                          BUSY_STEPS)
+                    busy = profiling.profiled(
+                        lambda: step(rest.pop(0), trainer.generator, 0.01), BUSY_STEPS).busy_ms
                     break
         finally:
             it.close()
@@ -2308,7 +2285,7 @@ def phase_encoder_run(dev: torch.device, card: str, tag: str, overrides: list,
     run = training.SyntheticRun(cfg, dev)
     batches = [run.next_batch() for _ in range(BUSY_STEPS + 1)]
     run.step(batches.pop())
-    busy = device_busy_ms(lambda: run.step(batches.pop()), BUSY_STEPS)
+    busy = profiling.profiled(lambda: run.step(batches.pop()), BUSY_STEPS).busy_ms
     print(f"[{tag}] {' '.join(overrides)} at full width, synthetic windows: losses "
           + ", ".join(f"{v:.4f}" for v in losses) + f"; frozen {frozen} ({len(init)} tensors) as "
           f"initialised; step {step_ms:.2f} ms (median of steps {WARM_STEPS}..{ENCODER_STEPS - 1}, "
@@ -2471,7 +2448,7 @@ def phase_aff_presets(dev: torch.device, card: str) -> dict:
     device busy and the convolutions' share. Then ``train_depth``."""
     from hulc2_torch.affordance import train_affordance, train_depth
     from hulc2_torch.configs.affordance import affordance_config
-    from hulc2_torch.tools.profile_affordance import CONV, step_profile, synthetic_train_step
+    from hulc2_torch.tools.profile_affordance import CONV, synthetic_train_step
     from hulc2_torch.utils.device import set_precision_flags
 
     set_precision_flags()
@@ -2493,7 +2470,9 @@ def phase_aff_presets(dev: torch.device, card: str) -> dict:
                       and "running" not in k)
         if moved != want or not all(map(math.isfinite, losses)):
             fail(f"{name}: losses {losses}; encoder tensors moved {moved}, expected {want}")
-        busy, _, _, fams = step_profile(step, BUSY_STEPS)
+        stepped = profiling.profiled(step, BUSY_STEPS)
+        busy = stepped.busy_ms
+        fams = profiling.breakdown(stepped.activities, BUSY_STEPS).family_ms
         wall = statistics.median(walls[WARM_STEPS:])
         rows[name] = {"step_ms": wall, "busy_ms": busy, "conv_share": fams.get(CONV, 0.0) / busy}
         print(f"[aff_presets] {name}: {aff['encoder_name']} "
@@ -3429,7 +3408,7 @@ def main() -> int:
     logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     logging.getLogger("hulc2_torch.train.trainer").setLevel(logging.INFO)
     t_start = time.perf_counter()
-    card = card_line()
+    card = profiling.card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     phase_build()

@@ -41,6 +41,7 @@ import torch
 
 from hulc2_torch.kernels import build
 from hulc2_torch.ops import preprocess
+from hulc2_torch.tools.profiling import card_line
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
@@ -188,8 +189,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line()
     print(f"card: {card}; torch {torch.__version__}", flush=True)
     summary: Dict = {"card": card}
     cases = [(f"{step} {cam}", shape) for step, shapes in STEPS.items() for cam, shape in shapes.items()]

@@ -47,7 +47,6 @@ import copy
 import json
 import re
 import statistics
-import subprocess
 import sys
 from collections import Counter
 from typing import Dict, Optional, Sequence
@@ -58,6 +57,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from hulc2_torch.configs.flagship import flagship_config
 from hulc2_torch.core.config import compose, options
+from hulc2_torch.tools import profiling
 from hulc2_torch.training import SyntheticRun
 
 # dense peak TFLOP/s by device name and compute dtype (NVIDIA H100 SXM data
@@ -119,7 +119,7 @@ RNN_FLOPS = {torch.ops.aten._cudnn_rnn: cudnn_rnn_flop,
 
 # op names that are products (or hold them); an op among them without a
 # formula makes the count refuse
-_PRODUCT = re.compile(r"(^|_)(a?b?mm|addbmm|baddbmm|addmv|mv|v?dot|matmul|linear|einsum|tensordot"
+PRODUCT = re.compile(r"(^|_)(a?b?mm|addbmm|baddbmm|addmv|mv|v?dot|matmul|linear|einsum|tensordot"
                       r"|conv\w*|\w*rnn\w*|\w*lstm\w*|\w*gru\w*|\w*attention\w*)($|_)")
 # ops whose names match but carry no product
 _NOT_PRODUCTS = {"_cudnn_rnn_flatten_weight"}
@@ -142,7 +142,7 @@ def uncounted_products(ops: Counter, registry) -> Dict[str, int]:
     out = {}
     for op, n in ops.items():
         name = op.__name__
-        if op not in registry and name not in _NOT_PRODUCTS and _PRODUCT.search(name):
+        if op not in registry and name not in _NOT_PRODUCTS and PRODUCT.search(name):
             out[str(op)] = n
     return out
 
@@ -204,12 +204,6 @@ def count_step(run: SyntheticRun, raw: dict) -> dict:
     return {"flops": int(counter.get_total_flops()), "flops_by_op": by_op}
 
 
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60,
-                          check=True).stdout.strip().splitlines()[0]
-
-
 def peak_tflops(device: torch.device, dtype: str, given: Optional[float] = None) -> float:
     if given:
         return given
@@ -224,17 +218,15 @@ def measure(run: SyntheticRun, flops: int, steps: int, warmup: int,
             peak: Optional[float] = None) -> dict:
     """The step's wall and device-busy time on the card, the achieved
     TFLOP/s and the shares of the peak over both."""
-    from hulc2_torch.tools.profile_train import _timed_steps, profile_steps
-
     if run.device.type != "cuda":
         raise ValueError("--measure times the step on the card: it needs a CUDA device")
-    _timed_steps(run, warmup)
-    wall_ms = statistics.median(_timed_steps(run, steps))
-    _, _, _, busy_ms = profile_steps(run, steps)
+    profiling.wall_ms(run.step, warmup, run.device, run.next_batch)
+    wall_ms = statistics.median(profiling.wall_ms(run.step, steps, run.device, run.next_batch))
+    _, _, _, busy_ms = profiling.profile_steps(run, steps)
     dtype = compute_dtype(run)
     peak = peak_tflops(run.device, dtype, peak)
     achieved = flops / (busy_ms * 1e-3) / 1e12
-    return {"card": card_line(), "wall_ms": wall_ms, "busy_ms": busy_ms,
+    return {"card": profiling.card_line(), "wall_ms": wall_ms, "busy_ms": busy_ms,
             "achieved_tflops": achieved, "peak_tflops": peak, "mfu": achieved / peak,
             "mfu_wall": flops / (wall_ms * 1e-3) / 1e12 / peak}
 

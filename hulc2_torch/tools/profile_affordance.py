@@ -27,26 +27,14 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
-import time
-from collections import defaultdict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-CONV = "conv (cuDNN)"  # tools/profile_train.FAMILIES' convolutions
+from hulc2_torch.tools import profiling
 
-
-def _wall_ms(fn, n: int) -> List[float]:
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times
+CONV = "conv (cuDNN)"  # tools/profiling.FAMILIES' convolutions
 
 
 def synthetic_train_step(cfg: dict, dev: torch.device, frame_hw: int = 96, n_batches: int = 4,
@@ -96,28 +84,11 @@ def synthetic_train_step(cfg: dict, dev: torch.device, frame_hw: int = 96, n_bat
     return model, train_step
 
 
-def step_profile(step, n: int):
-    """(device busy ms per call, device activities, {kernel name: [us]},
-    {family: ms per call}) of ``n`` calls of ``step`` under the profiler."""
-    from hulc2_torch.tools.profile_eval import _profiled
-    from hulc2_torch.tools.profile_train import family
-
-    busy_ms, kernels, _ = _profiled(step, n)
-    by_name: Dict[str, List[float]] = defaultdict(list)
-    for e in kernels:
-        by_name[e.name].append(e.time_range.elapsed_us())
-    by_family: Dict[str, float] = defaultdict(float)
-    for name, times in by_name.items():
-        by_family[family(name)] += sum(times) / 1e3 / n
-    return busy_ms, len(kernels), by_name, dict(by_family)
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from hulc2_torch.affordance.depth_heads import DepthNorm
     from hulc2_torch.affordance.detector import AffordancePredictor
     from hulc2_torch.affordance.train_affordance import SyntheticAffordanceDataset, input_hw
     from hulc2_torch.configs.affordance import affordance_config
-    from hulc2_torch.tools.profile_eval import _profiled
     from hulc2_torch.utils.device import set_precision_flags
 
     parser = argparse.ArgumentParser(description=__doc__,
@@ -130,17 +101,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = profiling.card_line()
     dev = torch.device("cuda")
     set_precision_flags()
     cfg = affordance_config(args.overrides)
     aff, bs = cfg["aff_detection"], cfg["batch_size"]
     hw = input_hw(aff)
     model, train_step = synthetic_train_step(cfg, dev, args.frame_hw)
-    _wall_ms(train_step, args.warmup)
-    wall = _wall_ms(train_step, args.steps)
-    busy_ms, n_kernels, by_name, by_family = step_profile(train_step, args.steps)
+    profiling.wall_ms(train_step, args.warmup)
+    wall = profiling.wall_ms(train_step, args.steps)
+    stepped = profiling.profiled(train_step, args.steps)
+    busy_ms, b = stepped.busy_ms, profiling.breakdown(stepped.activities, args.steps)
 
     pred = AffordancePredictor(model, DepthNorm(), (hw, hw), seed=0)
     rng = np.random.default_rng(2)
@@ -153,19 +124,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     def predict():
         return pred.predict_batch(frames, langs)
 
-    _wall_ms(predict, args.warmup)
-    pwall = _wall_ms(predict, args.steps)
-    pbusy_ms, pkernels, _ = _profiled(predict, args.steps)
+    profiling.wall_ms(predict, args.warmup)
+    pwall = profiling.wall_ms(predict, args.steps)
+    predicted = profiling.profiled(predict, args.steps)
+    pbusy_ms = predicted.busy_ms
     wall_ms, pwall_ms = statistics.median(wall), statistics.median(pwall)
-    conv_ms = by_family.get(CONV, 0.0)
+    conv_ms = b.family_ms.get(CONV, 0.0)
     summary = {
         "card": card, "encoder": aff["encoder_name"], "overrides": list(args.overrides),
         "compute_dtype": aff.get("compute_dtype") or "float32",
         "batch": bs, "frame_hw": args.frame_hw, "input_hw": hw,
         "step_wall_ms": wall_ms, "step_wall_spread_ms": [min(wall), max(wall)],
         "step_device_busy_ms": busy_ms, "step_idle_share": 1 - busy_ms / wall_ms,
-        "step_device_activities": n_kernels / args.steps,
-        "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+        "step_device_activities": len(stepped.activities) / args.steps,
+        "by_family_ms": b.family_ms,
         "conv_share": conv_ms / busy_ms,
         "predict_n": args.predict_n, "predict_wall_ms": pwall_ms,
         "predict_wall_spread_ms": [min(pwall), max(pwall)], "predict_device_busy_ms": pbusy_ms,
@@ -179,14 +151,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
           f"{summary['step_device_activities']:.0f} device activities")
     print(f"device time per step by kernel family (convolutions {100 * conv_ms / busy_ms:.1f}% "
           f"of the busy time):")
-    for fam, ms in summary["by_family_ms"].items():
-        print(f"  {fam:<16} {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%")
+    print("\n".join(profiling.family_rows(b, busy_ms)))
     print("top kernels by device time per step:")
-    for name, times in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:12]:
-        print(f"  {sum(times) / 1e3 / args.steps:8.3f} ms  x{len(times) // args.steps:<5d} {name[:100]}")
+    print("\n".join(profiling.top_rows(b, args.steps, 12)))
     print(f"prediction of {args.predict_n} frames: wall {pwall_ms:.3f} ms (spread "
           f"{min(pwall):.3f}-{max(pwall):.3f}), device busy {pbusy_ms:.3f} ms, "
-          f"{len(pkernels) / args.steps:.0f} device activities")
+          f"{len(predicted.activities) / args.steps:.0f} device activities")
     print(json.dumps(summary), flush=True)
     return summary
 

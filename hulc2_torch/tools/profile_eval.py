@@ -24,11 +24,8 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
-import time
-from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,40 +100,9 @@ class EvalDispatch:
         return action
 
 
-def _profiled(fn, n: int) -> Tuple[float, List, object]:
-    """(device busy ms per call, the device events, the profiler) of ``n``
-    calls of ``fn`` under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from hulc2_torch.tools.profile_train import _union_us
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device activity")
-    return _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / n, \
-        kernels, prof
-
-
-def _timed(dispatch: EvalDispatch, n: int) -> List[float]:
-    times = []
-    for _ in range(n):
-        torch.cuda.synchronize(dispatch.device)
-        t0 = time.perf_counter()
-        dispatch()
-        torch.cuda.synchronize(dispatch.device)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from hulc2_torch.tools import bench_shift_normalize as bench
-    from hulc2_torch.tools.profile_train import family
+    from hulc2_torch.tools import profiling
 
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -148,22 +114,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = profiling.card_line()
     dispatch = EvalDispatch(args.k, "cuda", args.overrides)
-    _timed(dispatch, args.warmup)
-    wall = _timed(dispatch, args.steps)
+    profiling.wall_ms(dispatch, args.warmup, dispatch.device)
+    wall = profiling.wall_ms(dispatch, args.steps, dispatch.device)
     wall_ms = statistics.median(wall)
 
-    busy_ms, kernels, prof = _profiled(dispatch, args.steps)
+    p = profiling.profiled(dispatch, args.steps)
+    busy_ms, kernels = p.busy_ms, p.activities
     if args.trace:
-        prof.export_chrome_trace(args.trace)
-    by_name: Dict[str, List[float]] = defaultdict(list)
-    for e in kernels:
-        by_name[e.name].append(e.time_range.elapsed_us())
-    by_family: Dict[str, float] = defaultdict(float)
-    for name, times in by_name.items():
-        by_family[family(name)] += sum(times) / 1e3 / args.steps
+        p.prof.export_chrome_trace(args.trace)
+    b = profiling.breakdown(kernels, args.steps)
 
     scenes = [s["scene_obs"] for s in dispatch.states]
     robots = [s["robot_obs"] for s in dispatch.states]
@@ -175,7 +136,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             return dispatch.render_fn(scenes[i], robots[i])
 
         render()
-        render_ms, render_events, _ = _profiled(render, args.steps)
+        rendered = profiling.profiled(render, args.steps)
         shift_ms = {}
         for cam, hw in (("rgb_static", 96), ("rgb_gripper", 64)):
             sets = bench.make_sets(args.k, hw, 0, bench.SETS, dispatch.device, seed=hw)
@@ -184,26 +145,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     summary = {
         "card": card, "k": args.k, "wall_ms": wall_ms, "wall_spread_ms": [min(wall), max(wall)],
         "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-        "device_activities": len(kernels) / args.steps, "render_ms": render_ms,
-        "render_activities": len(render_events) / args.steps,
+        "device_activities": len(kernels) / args.steps, "render_ms": rendered.busy_ms,
+        "render_activities": len(rendered.activities) / args.steps,
         "shift_normalize_pad0_ms": shift_ms,
-        "by_family_ms": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
+        "by_family_ms": b.family_ms,
     }
     print(f"card: {card}; torch {torch.__version__}")
     print(f"one dispatch of {args.k} envs (render + transform + policy step): wall {wall_ms:.3f} ms "
           f"(median of {args.steps}, spread {min(wall):.3f}-{max(wall):.3f}), device busy "
           f"{busy_ms:.3f} ms, idle share {100 * summary['idle_share']:.1f}%, "
           f"{summary['device_activities']:.0f} device activities")
-    print(f"renderer alone: {render_ms:.4f} ms device busy per dispatch, "
+    print(f"renderer alone: {rendered.busy_ms:.4f} ms device busy per dispatch, "
           f"{summary['render_activities']:.0f} device activities; shift_normalize at pad 0: "
           + ", ".join(f"{cam} {args.k}x{hw}x{hw}x3 {ms:.4f} ms" for (cam, ms), hw
                       in zip(shift_ms.items(), (96, 64))))
     print("device time per dispatch by kernel family:")
-    for fam, ms in summary["by_family_ms"].items():
-        print(f"  {fam:<16} {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%")
+    print("\n".join(profiling.family_rows(b, busy_ms)))
     print("top kernels by device time per dispatch:")
-    for name, times in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
-        print(f"  {sum(times) / 1e3 / args.steps:8.3f} ms  x{len(times) // args.steps:<5d} {name[:100]}")
+    print("\n".join(profiling.top_rows(b, args.steps, 15)))
     print(json.dumps(summary), flush=True)
     return summary
 

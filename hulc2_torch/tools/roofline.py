@@ -44,8 +44,8 @@ import torch
 
 from hulc2_torch.ops.preprocess import SPAN as SHIFT_SPAN
 from hulc2_torch.tools.bench_shift_normalize import launch_bytes
-from hulc2_torch.tools.flops_probe import _PRODUCT
-from hulc2_torch.tools.profile_train import family
+from hulc2_torch.tools.flops_probe import PRODUCT
+from hulc2_torch.tools.profiling import family
 
 # memory rate by device name, GB/s (NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s)
 HBM_GBPS = {"NVIDIA H100 80GB HBM3": 3350.0}
@@ -214,7 +214,7 @@ def launching_ops(events: Sequence[dict]) -> Dict[int, dict]:
 
 
 def is_product(kernel: str, op: str) -> bool:
-    return bool(_MATRIX_KERNEL.search(kernel) or _PRODUCT.search(op.split("::", 1)[-1]))
+    return bool(_MATRIX_KERNEL.search(kernel) or PRODUCT.search(op.split("::", 1)[-1]))
 
 
 def roofline(trace, steps: int, top: int = 10, hbm_gbps: Optional[float] = None) -> dict:

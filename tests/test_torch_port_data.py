@@ -350,29 +350,6 @@ def test_device_gather_equals_host_plan(calvin_dir):
                 np.testing.assert_array_equal(g, w, err_msg=f"epoch {epoch} {k}")
 
 
-def test_tiled_store_gives_the_same_batches(calvin_dir):
-    """``profile_train --store-rows``: the store tiled to 3.5 copies of the
-    frames, each window gathered from a random whole copy, yields the host
-    plan's batches, and its gathers do reach the later copies."""
-    from hulc2_torch.tools.profile_train import _spread_gather, tile_store
-
-    host = _port_dm(calvin_dir)
-    dm = _port_dm(calvin_dir)
-    n = dm._stores["training"].arrays["rgb_static"].shape[0]
-    rows = 7 * n // 2
-    assert tile_store(dm, rows) == n
-    loader = dm.fused_train_iter()
-    assert dm.device_store.arrays["rgb_static"].shape[0] == rows
-    seen = []
-    gather = dm.device_store.gather
-    dm.device_store.gather = _spread_gather(lambda r: seen.append(r) or gather(r), n, rows)
-    for got, want in zip(loader, host_fused_batches(host, 0)):
-        for k, w in want.items():
-            g = got[k].numpy() if isinstance(got[k], torch.Tensor) else got[k]
-            np.testing.assert_array_equal(g, w, err_msg=k)
-    assert max(r.max() for r in seen) >= n and max(r.max() for r in seen) < 3 * n
-
-
 def test_datamodule_refuses_unported_paths(calvin_dir):
     """The device store refuses frame skipping and one modality, and so does
     the process loader (ported since) one modality, as JAX's; an unknown

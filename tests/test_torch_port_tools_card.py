@@ -12,7 +12,7 @@ import torch
 from hulc2_torch import kernels
 from hulc2_torch.models.language import OfflineClipTextEncoder
 from hulc2_torch.tools import flops_probe, roofline
-from hulc2_torch.tools.profile_train import profile_steps
+from hulc2_torch.tools.profiling import profile_steps
 from hulc2_torch.training import SyntheticRun
 
 SMALL = ["model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",

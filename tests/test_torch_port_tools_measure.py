@@ -1,5 +1,6 @@
-"""The FLOP count (``tools/flops_probe.py``) and the roofline
-(``tools/roofline.py``) on the CPU.
+"""The FLOP count (``tools/flops_probe.py``), the roofline
+(``tools/roofline.py``) and the profilers' reduction of device activities
+(``tools/profiling.py``) on the CPU.
 
 The count of a small ``cfg_low_level`` train step, and of its recurrent
 variant (LSTM decoder, BiLSTM posterior), must equal a count made without
@@ -9,10 +10,12 @@ counts 2 M N K in the forward pass and, where the gradient reaches the
 module, once more for the weight gradient and once for the input gradient
 when the input needs one. The cuDNN recurrence's formula must equal the
 unfused recurrence's count on the CPU for every kind, depth, direction and
-gradient need. The roofline reads a hand-written Chrome trace.
+gradient need. The roofline reads a hand-written Chrome trace, the
+reduction hand-made activities.
 """
 import itertools
 import json
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -20,7 +23,7 @@ import torch.nn as nn
 
 from hulc2_torch.models.aux_nets import ProjVisLang
 from hulc2_torch.models.layers import MultiHeadAttention, ReluRNN
-from hulc2_torch.tools import flops_probe, roofline
+from hulc2_torch.tools import flops_probe, profiling, roofline
 from hulc2_torch.training import SyntheticRun
 
 SMALL = ["model.plan_proposal.hidden_size=64", "model.plan_recognition.encoder_hidden_size=64",
@@ -285,3 +288,43 @@ def test_roofline_memory_rate_by_card(tmp_path, capsys):
 ])
 def test_op_bytes(name, args, want):
     assert roofline.op_bytes(name, args) == want
+
+
+# ------------------------------------------------------------------ profiling
+def _activity(name, start, end):
+    return SimpleNamespace(name=name, time_range=SimpleNamespace(
+        start=start, end=end, elapsed_us=lambda: end - start))
+
+
+@pytest.mark.parametrize("activities,busy_us,family_us", [
+    # disjoint
+    ([("void at::native::vectorized_elementwise_kernel<4>", 0, 10),
+      ("sm90_xmma_gemm_bf16bf16_bf16f32", 20, 30)], 20,
+     {"elementwise": 10, "gemm (cuBLAS)": 10}),
+    # overlapping; a cuDNN implicit GEMM is a convolution (first match wins)
+    ([("shift_normalize_kernel", 0, 10), ("cutlass_implicit_gemm_conv_fprop", 5, 15),
+      ("cudnn::winograd_dgrad", 12, 14)], 15,
+     {"shift_normalize": 10, "conv (cuDNN)": 12}),
+    # nested
+    ([("multi_tensor_apply_kernel<FusedAdam>", 0, 30), ("reduce_kernel<512>", 10, 20),
+      ("layer_norm_kernel", 12, 14)], 30,
+     {"optimizer": 30, "reduction": 12}),
+    # touching, listed out of order; an unknown name is "other"
+    ([("softmax_warp_forward", 10, 20), ("Memcpy DtoD (Device -> Device)", 0, 10),
+      ("mystery", 25, 27), ("index_select_kernel", 20, 25)], 27,
+     {"softmax": 10, "index / copy": 15, "other": 2}),
+])
+def test_profiling_busy_time_and_families(activities, busy_us, family_us):
+    """The union of the activities' intervals; their device time by kernel
+    family, per call of two, largest first; executions and names kept."""
+    events = [_activity(*a) for a in activities]
+    assert profiling.union_us([(e.time_range.start, e.time_range.end) for e in events]) == busy_us
+    b = profiling.breakdown(events, 2)
+    assert b.family_ms == pytest.approx({f: us / 1e3 / 2 for f, us in family_us.items()})
+    assert list(b.family_ms) == sorted(family_us, key=lambda f: -family_us[f])
+    assert sum(b.family_execs.values()) == len(activities) / 2
+    assert {n: sum(t) for n, t in b.by_name.items()} == {n: e - a for n, a, e in activities}
+    rows = profiling.family_rows(b, busy_us / 1e3 / 2)
+    assert [r.split()[0] for r in rows] == [f.split()[0] for f in b.family_ms]
+    top = profiling.top_rows(b, 2, 1)
+    assert len(top) == 1 and max(activities, key=lambda a: a[2] - a[1])[0][:100] in top[0]

@@ -330,7 +330,7 @@ def test_replayed_steps_run_the_kernel_on_the_device_trace(cuda_device):
     step's two shift_normalize launches (one per camera), which only the
     replay counter counts on the host."""
     from hulc2_torch import kernels
-    from hulc2_torch.tools.profile_train import profile_steps
+    from hulc2_torch.tools.profiling import profile_steps
 
     run = _run("cuda")
     run.step(run.next_batch())
